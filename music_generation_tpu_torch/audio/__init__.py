@@ -1,0 +1,4 @@
+from .wav import SAMPLE_RATE, concat_with_delay, normalize_int16, write_wav_bytes
+
+__all__ = ["SAMPLE_RATE", "concat_with_delay", "normalize_int16",
+           "write_wav_bytes"]

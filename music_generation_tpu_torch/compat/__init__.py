@@ -1,0 +1,5 @@
+from .from_jax import (melody_state_dicts_from_flax, state_dict_from_flax,
+                       visinger_state_dict_from_flax)
+
+__all__ = ["visinger_state_dict_from_flax", "melody_state_dicts_from_flax",
+           "state_dict_from_flax"]

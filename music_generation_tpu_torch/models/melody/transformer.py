@@ -1,0 +1,219 @@
+"""Melody transformer (lyric -> note enc-dec) and the MSE duration model.
+
+Twin of MelodyTransformer (prev_mode="reference") and MSEDurationModel in
+music_generation_tpu/models/melody/transformer.py: the "annotated
+transformer" with pre-norm sublayers, a final LayerNorm, sinusoidal
+positions and emb * sqrt(d), plus the cross-sentence ``dotattention``
+memory. LayerNorms use flax's default eps, 1e-6.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+MASK_VALUE = -1e9
+LN_EPS = 1e-6
+
+
+@dataclasses.dataclass(frozen=True)
+class MelodyConfig:
+    src_vocab: int = 4000
+    tgt_vocab: int = 37          # note_dictionary: 4 reserved + 33 pitches
+    n_layers: int = 6
+    d_model: int = 512
+    d_ff: int = 2048
+    n_heads: int = 8
+    max_len: int = 512
+
+
+def sinusoidal_position_encoding(max_len: int, d_model: int) -> np.ndarray:
+    pe = np.zeros((max_len, d_model), dtype=np.float32)
+    position = np.arange(max_len)[:, None].astype(np.float32)
+    div = np.exp(np.arange(0, d_model, 2) * -(math.log(10000.0) / d_model))
+    pe[:, 0::2] = np.sin(position * div)
+    pe[:, 1::2] = np.cos(position * div)
+    return pe
+
+
+def causal_mask(length: int, device=None) -> torch.Tensor:
+    """[1, 1, L, L] lower-triangular mask."""
+    return torch.tril(torch.ones(length, length, dtype=torch.int32,
+                                 device=device))[None, None]
+
+
+class TokenEmbedding(nn.Module):
+    def __init__(self, vocab: int, d_model: int, max_len: int = 5000):
+        super().__init__()
+        self.d_model = d_model
+        self.lut = nn.Embedding(vocab, d_model)
+        nn.init.normal_(self.lut.weight, std=vocab ** -0.5)
+        self.register_buffer(
+            "pe", torch.from_numpy(sinusoidal_position_encoding(
+                max_len, d_model)), persistent=False)
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        x = self.lut(ids) * math.sqrt(self.d_model)
+        return x + self.pe[None, : x.shape[1]]
+
+
+def _dense(d_in: int, d_out: int) -> nn.Linear:
+    lin = nn.Linear(d_in, d_out)
+    nn.init.trunc_normal_(lin.weight, std=d_in ** -0.5)
+    nn.init.zeros_(lin.bias)
+    return lin
+
+
+class MHA(nn.Module):
+    def __init__(self, d_model: int, n_heads: int):
+        super().__init__()
+        self.n_heads = n_heads
+        self.q, self.k, self.v = (_dense(d_model, d_model) for _ in range(3))
+        self.out = _dense(d_model, d_model)
+
+    def forward(self, q, k, v, mask=None):
+        b, d = q.shape[0], q.shape[-1]
+        h, d_k = self.n_heads, d // self.n_heads
+
+        def heads(x, lin):
+            return lin(x).reshape(b, x.shape[1], h, d_k).transpose(1, 2)
+
+        Q, K, V = heads(q, self.q), heads(k, self.k), heads(v, self.v)
+        scores = Q @ K.transpose(-1, -2) / math.sqrt(d_k)
+        if mask is not None:
+            scores = scores.masked_fill(mask == 0, MASK_VALUE)
+        out = torch.softmax(scores, dim=-1) @ V
+        return self.out(out.transpose(1, 2).reshape(b, q.shape[1], d))
+
+
+class FeedForward(nn.Module):
+    def __init__(self, d_model: int, d_ff: int):
+        super().__init__()
+        self.fc1 = _dense(d_model, d_ff)
+        self.fc2 = _dense(d_ff, d_model)
+
+    def forward(self, x):
+        return self.fc2(torch.relu(self.fc1(x)))
+
+
+class PreNormBlock(nn.Module):
+    """x + sublayer(LN(x)) — the annotated-transformer sublayer."""
+
+    def __init__(self, d_model: int, sublayer: nn.Module):
+        super().__init__()
+        self.norm = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.sublayer = sublayer
+
+
+class MelodyEncoder(nn.Module):
+    def __init__(self, cfg: MelodyConfig):
+        super().__init__()
+        d = cfg.d_model
+        self.attn_res = nn.ModuleList(
+            PreNormBlock(d, MHA(d, cfg.n_heads)) for _ in range(cfg.n_layers))
+        self.ff_res = nn.ModuleList(
+            PreNormBlock(d, FeedForward(d, cfg.d_ff))
+            for _ in range(cfg.n_layers))
+        self.final_norm = nn.LayerNorm(d, eps=LN_EPS)
+
+    def forward(self, x, src_mask):
+        for attn, ff in zip(self.attn_res, self.ff_res):
+            h = attn.norm(x)
+            x = x + attn.sublayer(h, h, h, src_mask)
+            x = x + ff.sublayer(ff.norm(x))
+        return self.final_norm(x)
+
+
+class MelodyDecoder(nn.Module):
+    def __init__(self, cfg: MelodyConfig):
+        super().__init__()
+        d = cfg.d_model
+        self.self_res = nn.ModuleList(
+            PreNormBlock(d, MHA(d, cfg.n_heads)) for _ in range(cfg.n_layers))
+        self.cross_res = nn.ModuleList(
+            PreNormBlock(d, MHA(d, cfg.n_heads)) for _ in range(cfg.n_layers))
+        self.ffn_res = nn.ModuleList(
+            PreNormBlock(d, FeedForward(d, cfg.d_ff))
+            for _ in range(cfg.n_layers))
+        self.final_norm = nn.LayerNorm(d, eps=LN_EPS)
+
+    def forward(self, x, memory, src_mask, tgt_mask):
+        for sa, ca, ff in zip(self.self_res, self.cross_res, self.ffn_res):
+            h = sa.norm(x)
+            x = x + sa.sublayer(h, h, h, tgt_mask)
+            x = x + ca.sublayer(ca.norm(x), memory, memory, src_mask)
+            x = x + ff.sublayer(ff.norm(x))
+        return self.final_norm(x)
+
+
+class MelodyTransformer(nn.Module):
+    """Lyric -> note sequence model with previous-sentence memory."""
+
+    def __init__(self, cfg: MelodyConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.src_embed = TokenEmbedding(cfg.src_vocab, cfg.d_model)
+        self.tgt_embed = TokenEmbedding(cfg.tgt_vocab, cfg.d_model)
+        self.encoder = MelodyEncoder(cfg)
+        self.decoder = MelodyDecoder(cfg)
+        self.generator = _dense(cfg.d_model, cfg.tgt_vocab)
+        # PAD/UNK/BOS (ids 0-2) are never notes: start their logits low so
+        # an untrained model emits pitches the score frontend can read
+        with torch.no_grad():
+            self.generator.bias[:3] = -10.0
+
+    def encode(self, src, src_mask):
+        return self.encoder(self.src_embed(src), src_mask)
+
+    def dot_attention_memory(self, src, src_mask, previous_ids):
+        """The previous sentence's note embeddings attend over the encoder
+        outputs; the mixtures replace the decoder memory
+        (transformer_melody/model.py:349-362 of the reference)."""
+        memory = self.encode(src, src_mask)
+        prev = self.tgt_embed(previous_ids)
+        interact = prev @ memory.transpose(1, 2)
+        interact = interact + (src_mask[:, 0].to(torch.int32) - 1) * 1e-9
+        return torch.softmax(interact, dim=-1) @ memory
+
+    def prev_memory(self, src, src_mask, previous_ids, prev_active: bool):
+        """(memory, memory_mask) for the decode; the previous sentence
+        conditions it only when ``prev_active``."""
+        if prev_active:
+            return self.dot_attention_memory(src, src_mask,
+                                             previous_ids), src_mask
+        return self.encode(src, src_mask), src_mask
+
+    def decode(self, memory, src_mask, tgt, tgt_mask):
+        return self.decoder(self.tgt_embed(tgt), memory, src_mask, tgt_mask)
+
+    def logits(self, decoder_out):
+        return F.log_softmax(self.generator(decoder_out), dim=-1)
+
+    def forward(self, src, tgt, src_mask, tgt_mask):
+        memory = self.encode(src, src_mask)
+        return self.logits(self.decode(memory, src_mask, tgt, tgt_mask))
+
+
+class MSEDurationModel(nn.Module):
+    """Encoder + Linear/LeakyReLU + scalar head regressing log-duration."""
+
+    def __init__(self, cfg: MelodyConfig):
+        super().__init__()
+        self.src_embed = TokenEmbedding(cfg.src_vocab, cfg.d_model)
+        self.encoder = MelodyEncoder(cfg)
+        self.decoder = _dense(cfg.d_model, cfg.d_model)
+        self.generator = _dense(cfg.d_model, 1)
+        # the head regresses log(1 + centiseconds): start near a sung
+        # syllable's 0.3 s, so an untrained pipeline still renders audible
+        # notes instead of ~0 s phones with no frames
+        nn.init.constant_(self.generator.bias, math.log1p(30.0))
+
+    def forward(self, src, src_mask):
+        x = self.encoder(self.src_embed(src), src_mask)
+        x = F.leaky_relu(self.decoder(x), 0.2)
+        return self.generator(x)[..., 0]  # [B, T] log-durations

@@ -1,0 +1,268 @@
+"""End-to-end song synthesis pipeline (host orchestration around the models).
+
+Twin of music_generation_tpu/pipeline/synthesis.py for the served path:
+sentence split, whole-song melody, G2P score alignment, one batched SVS
+call with on-device int16 peak normalisation, 0.2 s leading pad, WAV bytes.
+Inputs are padded to the same (phone, frame) buckets as the JAX package:
+the vocoder has no mask, so the frame bucket shapes the last samples of
+every sentence and must match for the two packages to agree.
+"""
+
+from __future__ import annotations
+
+import bisect
+import logging
+import re
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..audio.wav import concat_with_delay, write_wav_bytes
+from ..device import resolve_device
+from ..frontend import ScoreFrontend, load_lexicon, midi_to_note
+from ..models.melody import (MelodyConfig, MelodyGenerator,
+                             lyric_dictionary_from_chars, note_dictionary)
+from ..models.svs import SVSConfig, VISinger
+
+SENTENCE_SPLIT_RE = re.compile(r"[.。，,？；;?!！\n]")
+PHONE_BUCKETS = (16, 32, 48, 64, 96, 128)
+FRAME_BUCKETS = (128, 256, 512, 768, 1024, 1536, 1984)
+MIN_SENTENCE_LEN = 2
+
+
+def split_sentences(lyrics: str, min_len: int = MIN_SENTENCE_LEN) -> list[str]:
+    """Punctuation split + merge of fragments shorter than min_len
+    (parity: syn_music :190-204 of the reference)."""
+    merged, carry = [], ""
+    for p in SENTENCE_SPLIT_RE.split(lyrics):
+        if len(p) < min_len:
+            carry += p + ","
+        else:
+            merged.append(carry + p)
+            carry = ""
+    return merged
+
+
+def _bucket(value: int, buckets: tuple[int, ...]) -> int:
+    i = bisect.bisect_left(buckets, value)
+    if i < len(buckets):
+        return buckets[i]
+    return -(-value // 64) * 64
+
+
+class SVSSynthesizer:
+    """Score -> waveform on one device, batched over sentences."""
+
+    # largest sentence batch per device call: inherited; not yet measured
+    # on the H100
+    MAX_BATCH = 16
+
+    def __init__(self, cfg: Optional[SVSConfig] = None, seed: int = 0,
+                 frontend: Optional[ScoreFrontend] = None, device=None,
+                 max_batch: Optional[int] = None):
+        self.device = resolve_device(device)
+        self.cfg = cfg or SVSConfig()
+        self.frontend = frontend or ScoreFrontend()
+        self.max_batch = max_batch or self.MAX_BATCH
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            self.model = VISinger(self.cfg)
+        self.model.to(self.device).eval()
+        self.generator = torch.Generator(self.device)
+        self.generator.manual_seed(seed + 17)
+
+    def _score_frame_bound(self, score) -> int:
+        return (int(np.ceil(score.note_durations.sum()
+                            / self.cfg.frame_seconds))
+                + len(score.phone_ids) + 8)
+
+    def _batch_inputs(self, scores: list):
+        """(max_frames, packed [5, b, t] int32 tensor on the device): phone
+        ids, note ids, tone ids, lengths (in column 0) and the float32 note
+        durations' bits — one host-to-device copy."""
+        t_pad = _bucket(max(len(s.phone_ids) for s in scores), PHONE_BUCKETS)
+        frame_bound = max(self._score_frame_bound(s) for s in scores)
+        max_frames = min(_bucket(frame_bound, FRAME_BUCKETS),
+                         FRAME_BUCKETS[-1])
+        packed = np.zeros((5, len(scores), t_pad), np.int32)
+        for i, s in enumerate(scores):
+            n = len(s.phone_ids)
+            packed[0, i, :n] = s.phone_ids
+            packed[1, i, :n] = s.note_ids
+            packed[2, i, :n] = s.shengdiao_ids
+            packed[3, i, 0] = max(n, 1)
+            packed[4, i, :n] = np.asarray(s.note_durations,
+                                          np.float32).view(np.int32)
+        tensor = torch.from_numpy(packed)
+        if self.device.type == "cuda":
+            tensor = tensor.pin_memory()
+        return max_frames, tensor.to(self.device, non_blocking=True)
+
+    def split_oversize(self, score, cap: int = FRAME_BUCKETS[-1]) -> list:
+        """Split a score whose frame bound exceeds the TextPostNet position
+        table (FRAME_BUCKETS[-1]) into syllable-aligned sub-scores, so no
+        audio is dropped."""
+        if self._score_frame_bound(score) <= cap:
+            return [score]
+        t = len(score.phone_ids)
+        starts = list(score.syllable_bounds())
+        ends = starts[1:] + [t]
+        pieces, lo = [], 0
+        for s, e in zip(starts, ends):
+            if (s > lo and self._score_frame_bound(score.slice_phones(lo, e))
+                    > cap):
+                pieces.append(score.slice_phones(lo, s))
+                lo = s
+        pieces.append(score.slice_phones(lo, t))
+        logging.getLogger("music_generation_tpu_torch").warning(
+            "sentence frame bound %d exceeds %d: split into %d sub-scores "
+            "at syllable boundaries (no audio dropped)",
+            self._score_frame_bound(score), cap, len(pieces))
+        return pieces
+
+    def synthesize_batch(self, scores: list,
+                         noise: Optional[torch.Tensor] = None
+                         ) -> list[np.ndarray]:
+        """Independent sentences -> per-sentence int16 waveforms, in device
+        calls of at most max_batch sentences. Over-long sentences split at
+        syllable boundaries and their pieces are re-joined. ``noise``
+        [b, max_frames, inter] replaces the prior sample (one call only)."""
+        if not scores:
+            return []
+        groups = [self.split_oversize(s) for s in scores]
+        if any(len(g) > 1 for g in groups):
+            wavs = self.synthesize_batch([p for g in groups for p in g])
+            out, k = [], 0
+            for g in groups:
+                out.append(np.concatenate(wavs[k: k + len(g)])
+                           if len(g) > 1 else wavs[k])
+                k += len(g)
+            return out
+        if len(scores) > self.max_batch:
+            # enqueue every chunk before collecting any: the host prepares
+            # chunk k+1 while the device runs chunk k
+            handles = [self.dispatch_batch(scores[k: k + self.max_batch])
+                       for k in range(0, len(scores), self.max_batch)]
+            return [w for h in handles for w in self.collect_batch(h)]
+        return self.collect_batch(self.dispatch_batch(scores, noise=noise))
+
+    @torch.no_grad()
+    def dispatch_batch(self, scores: list,
+                       noise: Optional[torch.Tensor] = None):
+        """Enqueue one batched SVS call (no host sync): infer, then the
+        per-sentence 32767/max(0.01, peak) int16 normalisation on the
+        device. Returns a handle for collect_batch."""
+        max_frames, packed = self._batch_inputs(scores)
+        hop = self.cfg.hop_length
+        audio, mel_len, _ = self.model.infer(
+            packed[0], packed[3, :, 0], packed[1],
+            packed[4].view(torch.float32), packed[2], max_frames,
+            noise=noise, generator=self.generator)
+        a = audio[..., 0]
+        valid = (torch.arange(a.shape[1], device=a.device)[None, :]
+                 < (mel_len * hop)[:, None])
+        a = a * valid
+        peak = torch.clamp(a.abs().amax(dim=1, keepdim=True), min=0.01)
+        out = (a * (32767.0 / peak)).to(torch.int16)
+        return out, mel_len, len(scores)
+
+    def collect_batch(self, handle) -> list[np.ndarray]:
+        audio, mel_len, b = handle
+        audio = audio.cpu().numpy()
+        mel_len = mel_len.cpu().numpy()
+        return [audio[i, : int(mel_len[i]) * self.cfg.hop_length]
+                for i in range(b)]
+
+
+@dataclass
+class SongResult:
+    wav_bytes: bytes
+    lyrics_sentences: list[str]
+    notes: list[list[str]]
+    timings: dict = field(default_factory=dict)
+
+
+class SongSynthesizer:
+    """Full lyrics -> song (multi-speaker via per-speaker SVS models)."""
+
+    def __init__(self, melody: MelodyGenerator,
+                 synthesizers: dict[int, SVSSynthesizer]):
+        self.melody = melody
+        self.synthesizers = synthesizers  # singer_id -> SVSSynthesizer
+        # melody decode carries previous-sentence state; serialize it so
+        # concurrent requests (serve/batching.py) stay race-free while the
+        # SVS stage batches across requests
+        self._melody_lock = threading.Lock()
+
+    def synthesize_song(self, lyrics: str, singer_id: int = 0,
+                        svs_batch_fn=None) -> SongResult:
+        """``svs_batch_fn(scores) -> wavs`` (when given) replaces the direct
+        SVS call — the serving tier passes a cross-request coalescer
+        (serve/batching.SVSBatcher.fn_for)."""
+        svs = self.synthesizers.get(singer_id, self.synthesizers[0])
+        sentences = split_sentences(lyrics)
+        t_start = time.time()
+        with self._melody_lock:
+            outs = self.melody.generate_song(sentences)
+        all_notes, scores = [], []
+        for out_lyric, note_tokens, durations in outs:
+            note_names = [midi_to_note(int(m)) if m != "rest" else "rest"
+                          for m in note_tokens]
+            all_notes.append(note_names)
+            scores.append(svs.frontend.align(out_lyric, note_names,
+                                             durations))
+        melody_s = time.time() - t_start
+
+        t0 = time.time()
+        wavs = (svs_batch_fn or svs.synthesize_batch)(scores)
+        svs_s = time.time() - t0
+        song = concat_with_delay(wavs, delay_seconds=0.2)
+        return SongResult(
+            wav_bytes=write_wav_bytes(song),
+            lyrics_sentences=sentences,
+            notes=all_notes,
+            timings={"total_s": time.time() - t_start,
+                     "melody_s": melody_s, "svs_s": svs_s},
+        )
+
+
+def tiny_configs(src_vocab: int) -> tuple[MelodyConfig, SVSConfig]:
+    """The tiny random-model configs of the JAX package's
+    build_default_song_synthesizer(tiny=True)."""
+    return (MelodyConfig(src_vocab=src_vocab, tgt_vocab=37, n_layers=1,
+                         d_model=32, d_ff=64, n_heads=2),
+            SVSConfig(inter_channels=16, hidden_channels=16,
+                      filter_channels=32, n_heads=2, n_layers=1,
+                      spec_channels=65, resblock_kernel_sizes=(3,),
+                      resblock_dilation_sizes=((1, 3),),
+                      upsample_rates=(8, 8, 2, 2),
+                      upsample_initial_channel=32,
+                      upsample_kernel_sizes=(16, 16, 4, 4)))
+
+
+def build_default_song_synthesizer(tiny: bool = False, n_speakers: int = 3,
+                                   seed: int = 0, device=None
+                                   ) -> SongSynthesizer:
+    """Random-initialised full pipeline (no trained weights ship with the
+    repository). Runs on ``device`` (default cuda)."""
+    device = resolve_device(device)
+    # the lyric dictionary covers the full monosyllable charset, sorted as
+    # in the JAX package so checkpoints transfer
+    lyric_dict = lyric_dictionary_from_chars(
+        sorted(load_lexicon().monosyllable.keys()))
+    if tiny:
+        mcfg, scfg = tiny_configs(lyric_dict.size)
+    else:
+        mcfg = MelodyConfig(src_vocab=lyric_dict.size, tgt_vocab=37)
+        scfg = SVSConfig()
+    melody = MelodyGenerator(lyric_dict, note_dictionary(), cfg=mcfg,
+                             seed=seed, device=device)
+    frontend = ScoreFrontend()
+    synths = {i: SVSSynthesizer(scfg, seed=seed + i, frontend=frontend,
+                                device=device)
+              for i in range(n_speakers)}
+    return SongSynthesizer(melody, synths)

@@ -1,0 +1,222 @@
+"""HTTP song-generation service (stdlib, no flask dependency).
+
+Twin of music_generation_tpu/serve/app.py for the model path, with the same
+wire contract as the reference controllers:
+  POST /synthesis_music
+    body (json or form): text | keyword, singer_id (0=default, 1, 2)
+    -> {code: 200, message, data: {lyrics, audio: <b64 wav>}}
+    errors: 201 missing input (and keyword-only requests: the lyric LMs are
+    not ported yet), 202 length guard (1..500), 203 synth error
+  GET /healthz -> {ok: true}
+
+Run: python -m music_generation_tpu_torch.serve.app --port 5005
+"""
+
+from __future__ import annotations
+
+import argparse
+import base64
+import json
+import logging
+import os
+import threading
+import time
+import traceback
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Optional
+from urllib.parse import parse_qs
+
+from ..config import ServiceConfig
+
+
+def make_logger(cfg: ServiceConfig) -> logging.Logger:
+    logger = logging.getLogger(cfg.log_name)
+    if not logger.handlers:
+        logger.setLevel(logging.INFO)
+        os.makedirs(cfg.log_dir, exist_ok=True)
+        fh = logging.FileHandler(
+            os.path.join(cfg.log_dir, f"logger_{cfg.log_name}.log"),
+            encoding="utf-8")
+        fh.setFormatter(logging.Formatter(
+            "%(asctime)s - %(levelname)s - %(message)s"))
+        logger.addHandler(fh)
+        logger.addHandler(logging.StreamHandler())
+    return logger
+
+
+class MusicGenerationService:
+    """Transport-independent request handling (unit-testable)."""
+
+    def __init__(self, song_synthesizer, lyric_generator=None,
+                 cfg: Optional[ServiceConfig] = None,
+                 logger: Optional[logging.Logger] = None):
+        self.songs = song_synthesizer
+        self.lyrics = lyric_generator
+        self.cfg = cfg or ServiceConfig()
+        self.logger = logger or make_logger(self.cfg)
+        self._lock = threading.Lock()
+        # cross-request SVS micro-batching: concurrent requests coalesce
+        # their sentences into one device call (serve/batching.py); the
+        # melody stage is serialized inside SongSynthesizer
+        self._batcher = None
+        if self.cfg.svs_batching:
+            from .batching import SVSBatcher
+            self._batcher = SVSBatcher(
+                window_ms=self.cfg.batch_window_ms,
+                max_sentences=self.cfg.max_batch_sentences)
+
+    def close(self) -> None:
+        if self._batcher is not None:
+            self._batcher.close()
+
+    def handle_synthesis(self, data: dict) -> dict:
+        return self._handle_model_path(data)
+
+    def _resolve_text(self, data: dict):
+        """(lyrics_text, None) from a request payload, or (None, response
+        dict) when the request resolves to an error response."""
+        text = str(data.get("text", "") or "").strip()
+        if not text:
+            keyword = str(data.get("keyword", "") or data.get("theme", "")
+                          or "").strip()
+            if not keyword:
+                return None, {"code": 201,
+                              "message": "输入参数错误，必须输入非空字段text！"}
+            if self.lyrics is None:
+                return None, {"code": 201,
+                              "message": "keyword 模式不可用：歌词模型未加载！"}
+            self.logger.info("传入关键词:%s", keyword)
+            text = self.lyrics.generate(keyword).replace("-", "")
+            self.logger.info("生成歌词：%s", text)
+        else:
+            self.logger.info("直接传入歌词:%s", text)
+
+        if not (self.cfg.min_text_len <= len(text) <= self.cfg.max_text_len):
+            return None, {"code": 202,
+                          "message": "生成失败，传入文本必须大于1个字符，小于500个字符！"}
+        return text, None
+
+    def _handle_model_path(self, data: dict) -> dict:
+        text, resp = self._resolve_text(data)
+        if resp is not None:
+            return resp
+        try:
+            # inside the try so a non-numeric singer_id yields the code-203
+            # JSON the wire contract promises, not a raw 500
+            singer_id = int(data.get("singer_id", 0) or 0)
+            t0 = time.time()
+            if self._batcher is not None:
+                svs = self.songs.synthesizers.get(
+                    singer_id, self.songs.synthesizers[0])
+                result = self.songs.synthesize_song(
+                    text, singer_id=singer_id,
+                    svs_batch_fn=self._batcher.fn_for(svs))
+            else:
+                with self._lock:
+                    result = self.songs.synthesize_song(
+                        text, singer_id=singer_id)
+            b64 = base64.b64encode(result.wav_bytes).decode()
+            self.logger.info("音频合成耗时：%.3f 秒。", time.time() - t0)
+            return {"code": 200, "message": "success！",
+                    "data": {"lyrics": text, "audio": b64}}
+        except Exception:
+            self.logger.error("synthesis failed:\n%s", traceback.format_exc())
+            return {"code": 203, "message": "服务器错误，歌声合成出错！"}
+
+
+def make_http_server(service: MusicGenerationService, host: str, port: int
+                     ) -> ThreadingHTTPServer:
+    class Handler(BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"
+
+        def _send_json(self, payload: dict, status: int = 200):
+            body = json.dumps(payload, ensure_ascii=False).encode()
+            self.send_response(status)
+            self.send_header("Content-Type",
+                             "application/json; charset=utf-8")
+            self.send_header("Content-Length", str(len(body)))
+            self.send_header("Access-Control-Allow-Origin", "*")
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):
+            if self.path.rstrip("/") in ("", "/healthz"):
+                payload = {"ok": True}
+                if service._batcher is not None:
+                    payload["batching"] = dict(service._batcher.stats)
+                self._send_json(payload)
+            else:
+                self._send_json({"code": 404, "message": "not found"}, 404)
+
+        def do_POST(self):
+            if self.path.split("?")[0].rstrip("/") != "/synthesis_music":
+                self._send_json({"code": 404, "message": "not found"}, 404)
+                return
+            length = int(self.headers.get("Content-Length", 0))
+            raw = self.rfile.read(length)
+            ctype = self.headers.get("Content-Type", "")
+            try:
+                if ctype.startswith("application/json"):
+                    data = json.loads(raw or b"{}")
+                else:
+                    data = {k: v[0] for k, v in
+                            parse_qs(raw.decode(errors="replace")).items()}
+            except (ValueError, UnicodeDecodeError):
+                data = {}
+            if not isinstance(data, dict):
+                data = {}
+            self._send_json(service.handle_synthesis(data))
+
+        def log_message(self, fmt, *args):
+            service.logger.info("%s - %s", self.address_string(), fmt % args)
+
+    return ThreadingHTTPServer((host, port), Handler)
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(
+        description="music_generation_tpu_torch server (PyTorch/CUDA)")
+    parser.add_argument("--config", default=None)
+    parser.add_argument("--port", type=int, default=None)
+    parser.add_argument("--host", default=None)
+    parser.add_argument("--tiny", action="store_true",
+                        help="random tiny models (smoke testing)")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device the models run on (default cuda; "
+                             "raises when no GPU is present)")
+    args = parser.parse_args(argv)
+
+    cfg = ServiceConfig.from_file(args.config) if args.config \
+        else ServiceConfig()
+    cfg = ServiceConfig.from_env(cfg)
+    if args.port:
+        cfg.port = args.port
+    if args.host:
+        cfg.host = args.host
+    if args.tiny:
+        cfg.tiny = True
+
+    logger = make_logger(cfg)
+    logger.info("loading models (tiny=%s, device=%s)...", cfg.tiny,
+                args.device)
+    import torch
+    # full float32, the precision the port is held to against the JAX
+    # package (cuDNN would otherwise run the convolutions in TF32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from ..pipeline import build_default_song_synthesizer
+    songs = build_default_song_synthesizer(tiny=cfg.tiny,
+                                           n_speakers=cfg.n_speakers,
+                                           device=args.device)
+    service = MusicGenerationService(songs, None, cfg, logger)
+    server = make_http_server(service, cfg.host, cfg.port)
+    logger.info("serving on %s:%d", cfg.host, cfg.port)
+    try:
+        server.serve_forever()
+    finally:
+        server.server_close()
+        service.close()
+
+
+if __name__ == "__main__":
+    main()
