@@ -11,19 +11,29 @@ Phases, each fatal on failure (no exception is caught):
   3. align    full-width VISinger (SVSConfig()) MAS inputs -> the kernel via
               mas_duration_targets, held against the plain version
   4. serve    the port's HTTP server at full width (MelodyConfig(),
-              SVSConfig(), three singers): three song requests, cold + warm;
-              then one warm request's stage timings and device busy share
+              SVSConfig(), three singers, the full-width T5 lyric LM as
+              serve.app.main builds it): three song requests and three
+              keyword requests, cold + warm, then one keyword request
+              through the full-width GPT-2 LM; then one warm request's
+              stage timings and device busy share
   5. gpu-cpu  one sentence through the full-width VISinger.infer on the card
               and on the CPU: same weights, noise and pinned durations
+  6. lyrics   the full-width T5 and GPT-2 lyric LMs on the card against the
+              CPU (same weights): teacher-forced logits, greedy decodes up
+              to the first near tie; encode and per-token decode times,
+              LyricGeneratorT5.generate's wall, launches per token and the
+              device busy share under torch.profiler
 Launch counts are zeroed just before phase 3 and read after phase 4 (the
-slice's main path). All phases run in full float32: TF32 is off for matmuls
-and cuDNN convolutions. The last stdout line is the result JSON; it is
-printed only when every phase passed. Exits non-zero without a CUDA device.
+slice's main path; the lyric LMs launch no hand-written kernel). All phases
+run in full float32: TF32 is off for matmuls and cuDNN convolutions. The
+last stdout line is the result JSON; it is printed only when every phase
+passed. Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
 
 import base64
+import copy
 import io
 import json
 import subprocess
@@ -49,6 +59,10 @@ REQUESTS = [
     {"text": "你好世界。隐形的翅膀带我飞过绝望", "singer_id": 1},
     {"text": "天空中的星星在闪烁，我们一起唱歌"},
 ]
+KEYWORD_REQUESTS = [{"keyword": "夏天"}, {"keyword": "星空", "singer_id": 1},
+                    {"theme": "离别"}]
+LOGIT_REL_LIMIT = 1e-4    # card against CPU, teacher-forced, TF32 off
+NEAR_TIE = 1e-3           # CPU top-two logit gap below which greedy may part
 
 
 def log(msg: str) -> None:
@@ -193,27 +207,23 @@ def _post(port, payload):
         return json.loads(resp.read())
 
 
-def profile_request(songs, text: str) -> dict:
-    """Where one warm request's time goes: SongSynthesizer's stage timings
-    (unprofiled), then the same request under torch.profiler for the
-    device's busy time, its kernel launches and the heaviest kernels."""
+def profiled(fn) -> dict:
+    """fn() under torch.profiler: its wall, the device's busy time and
+    share, the kernel launches and the heaviest kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    timings = songs.synthesize_song(text).timings
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        songs.synthesize_song(text)
+        fn()
         torch.cuda.synchronize()
         profiled_s = time.time() - t0
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    return {"melody_s": timings["melody_s"], "svs_s": timings["svs_s"],
-            "total_s": timings["total_s"], "profiled_s": profiled_s,
-            "device_busy_s": busy_us / 1e6,
+    return {"profiled_s": profiled_s, "device_busy_s": busy_us / 1e6,
             "device_busy_share": busy_us / 1e6 / profiled_s,
             "kernel_launches": sum(e.count for e in kernels),
             "top_kernels": [{"name": e.key[:80], "count": e.count,
@@ -221,9 +231,77 @@ def profile_request(songs, text: str) -> dict:
                             for e in top]}
 
 
-def phase_serve(device):
-    import torch
+def profile_request(songs, text: str) -> dict:
+    """Where one warm request's time goes: SongSynthesizer's stage timings
+    (unprofiled), then the same request under torch.profiler."""
+    timings = songs.synthesize_song(text).timings
+    return {"melody_s": timings["melody_s"], "svs_s": timings["svs_s"],
+            "total_s": timings["total_s"],
+            **profiled(lambda: songs.synthesize_song(text))}
+
+
+class StageClock:
+    """A lyric generator that records the seconds of each generate()."""
+
+    def __init__(self, generator):
+        self.generator = generator
+        self.seconds = []
+
+    def generate(self, keyword: str) -> str:
+        t0 = time.time()
+        text = self.generator.generate(keyword)
+        self.seconds.append(time.time() - t0)
+        return text
+
+
+def check_song(tag: str, out: dict) -> float:
+    """A 200 answer's WAV: 22,050 Hz int16, finite, not only the pad.
+    Returns its seconds of audio."""
     from scipy.io import wavfile
+    if out.get("code") != 200 or not out["data"]["lyrics"]:
+        raise AssertionError(f"{tag}: {out}")
+    rate, wav = wavfile.read(io.BytesIO(
+        base64.b64decode(out["data"]["audio"])))
+    pad = int(0.2 * 22050)
+    if rate != 22050 or wav.dtype != np.int16:
+        raise AssertionError(f"{tag}: rate {rate} {wav.dtype}")
+    if len(wav) <= pad or not np.any(wav[pad:] != 0):
+        raise AssertionError(f"{tag}: {len(wav)} samples, silent or only "
+                             "the pad")
+    if not np.isfinite(wav.astype(np.float64)).all():
+        raise AssertionError(f"{tag}: non-finite samples")
+    return len(wav) / rate
+
+
+def keyword_requests(port, clock) -> list:
+    """The T5 keyword requests, cold and warm: each answers 200 with its
+    lyrics and a song, or 202 (empty or over-long lyrics). At least three
+    must answer 200."""
+    rows = []
+    for i, payload in enumerate(KEYWORD_REQUESTS):
+        for kind in ("cold", "warm"):
+            t0 = time.time()
+            out = _post(port, payload)
+            row = {"keyword_request": i, "kind": kind,
+                   "singer_id": payload.get("singer_id", 0),
+                   "code": out.get("code"), "latency_s": time.time() - t0,
+                   "lyric_s": clock.seconds[-1]}
+            if out.get("code") == 200:
+                row["lyric_chars"] = len(out["data"]["lyrics"])
+                row["audio_s"] = check_song(f"keyword request {i}", out)
+            elif out.get("code") != 202:
+                raise AssertionError(f"keyword request {i}: {out}")
+            rows.append(row)
+            log("serve keyword request: " + json.dumps(row,
+                                                       ensure_ascii=False))
+    n_ok = sum(r["code"] == 200 for r in rows)
+    if n_ok < 3:
+        raise AssertionError(f"only {n_ok} T5 keyword requests answered 200")
+    return rows
+
+
+def phase_serve(device, t5_gen, gpt2_gen):
+    import torch
     from music_generation_tpu_torch.config import ServiceConfig
     from music_generation_tpu_torch.pipeline import (
         build_default_song_synthesizer)
@@ -234,7 +312,8 @@ def phase_serve(device):
                                            seed=SEED, device=device)
     log(f"serve phase: full-width pipeline built in {time.time() - t0:.1f} s")
     cfg = ServiceConfig(log_dir="logs")
-    service = MusicGenerationService(songs, None, cfg)
+    clock = StageClock(t5_gen)
+    service = MusicGenerationService(songs, clock, cfg)
     server = make_http_server(service, "127.0.0.1", 0)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
@@ -248,22 +327,25 @@ def phase_serve(device):
                 t1 = time.time()
                 out = _post(port, payload)
                 row[f"{kind}_s"] = time.time() - t1
-                if out.get("code") != 200:
-                    raise AssertionError(f"request {i}: {out}")
-                rate, wav = wavfile.read(io.BytesIO(
-                    base64.b64decode(out["data"]["audio"])))
-                pad = int(0.2 * 22050)
-                if rate != 22050 or wav.dtype != np.int16:
-                    raise AssertionError(f"request {i}: rate {rate} "
-                                         f"{wav.dtype}")
-                if len(wav) <= pad or not np.any(wav[pad:] != 0):
-                    raise AssertionError(f"request {i}: {len(wav)} samples, "
-                                         "silent or only the pad")
-                if not np.isfinite(wav.astype(np.float64)).all():
-                    raise AssertionError(f"request {i}: non-finite samples")
-                row["audio_s"] = len(wav) / rate
+                row["audio_s"] = check_song(f"request {i}", out)
             latencies.append(row)
             log(f"serve request {i}: " + json.dumps(row, ensure_ascii=False))
+        keyword_rows = keyword_requests(port, clock)
+        # the same server with the GPT-2 LM (serve.app --lyric-model gpt2)
+        service.lyrics = clock = StageClock(gpt2_gen)
+        t1 = time.time()
+        out = _post(port, {"keyword": "夏天"})
+        row = {"keyword_request": "gpt2", "code": out.get("code"),
+               "latency_s": time.time() - t1, "lyric_s": clock.seconds[-1]}
+        if out.get("code") == 200:
+            row["lyrics"] = out["data"]["lyrics"]
+            row["audio_s"] = check_song("gpt2 keyword request", out)
+        elif out.get("code") == 202:
+            row["why"] = "the generated lyrics were empty or over 500 chars"
+        else:
+            raise AssertionError(f"gpt2 keyword request: {out}")
+        keyword_rows.append(row)
+        log("serve keyword request: " + json.dumps(row, ensure_ascii=False))
     finally:
         server.shutdown()
         server.server_close()
@@ -273,7 +355,7 @@ def phase_serve(device):
     log("serve profile: " + json.dumps(breakdown, ensure_ascii=False))
     del songs
     torch.cuda.empty_cache()
-    return latencies, breakdown
+    return latencies, keyword_rows, breakdown
 
 
 def phase_gpu_vs_cpu(device):
@@ -317,6 +399,164 @@ def phase_gpu_vs_cpu(device):
     return rel
 
 
+def rel_l2(got, want) -> float:
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).norm() / want.norm())
+
+
+def first_near_tie(logits, buf, steps):
+    """The first decode step whose CPU logits (logits[:, step], with the
+    bigram ban of the token buffer ``buf`` applied as the decode applies
+    it) hold their top two within NEAR_TIE of each other, else None."""
+    from music_generation_tpu_torch.models.lyrics.gpt2 import (
+        _ban_repeated_bigrams)
+    for pos in steps:
+        top = _ban_repeated_bigrams(logits[:, pos], buf, pos,
+                                    logits.shape[-1]).topk(2).values[0]
+        if float(top[0] - top[1]) < NEAR_TIE:
+            return pos
+    return None
+
+
+def host_ms(fn, reps: int = 3) -> float:
+    """Median host-clock ms of fn() between two device syncs."""
+    import torch
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def t5_on_card_and_cpu(device, t5_gen, budget: int) -> dict:
+    """Full-width T5: teacher-forced logits and the top_k=1 decode of the
+    default prompt on the card against a CPU copy of the same weights."""
+    import torch
+    from music_generation_tpu_torch.models.lyrics import topk_sample_generate
+    gpu = t5_gen.model
+    cpu = copy.deepcopy(gpu).cpu()
+    cfg = gpu.cfg
+    src = torch.tensor([t5_gen.prompt_ids("夏天")])
+    mask = torch.ones_like(src)
+    with torch.no_grad():
+        cpu_tok = topk_sample_generate(cpu, torch.Generator(), src, mask,
+                                       max_length=budget, top_k=1)
+        gpu_tok = topk_sample_generate(
+            gpu, torch.Generator(device), src.to(device), mask.to(device),
+            max_length=budget, top_k=1).cpu()
+        buf = torch.cat([torch.full((1, 1), cfg.decoder_start_token_id),
+                         cpu_tok], 1)
+        cpu_logits = cpu(src, mask, buf[:, :-1])
+        gpu_logits = gpu(src.to(device), mask.to(device),
+                         buf[:, :-1].to(device))
+    del cpu
+    row = cpu_tok[0].tolist()
+    eos = row.index(cfg.eos_token_id) if cfg.eos_token_id in row else None
+    end = budget if eos is None else eos + 1    # pad after EOS
+    tie = first_near_tie(cpu_logits, buf, range(end))
+    upto = end if tie is None else tie
+    rel = rel_l2(gpu_logits, cpu_logits)
+    same = torch.equal(gpu_tok[:, :upto], cpu_tok[:, :upto])
+    log(f"lyrics phase: T5 teacher-forced logits [1, {budget}, "
+        f"{cfg.vocab_size}] card vs CPU relative L2 {rel:.3e}; top_k=1 "
+        f"decode identical over {upto} of {budget} steps "
+        f"(first near tie: {tie}, EOS step: {eos})")
+    if not rel <= LOGIT_REL_LIMIT or not same:
+        raise AssertionError(f"T5 card vs CPU: rel {rel}, tokens equal "
+                             f"up to step {upto}: {same}")
+    return {"logits_rel_l2": rel, "steps_compared": upto,
+            "first_near_tie": tie, "src": src.to(device),
+            "mask": mask.to(device)}
+
+
+def gpt2_on_card_and_cpu(device, gpt2_gen) -> dict:
+    """Full-width GPT-2: teacher-forced logits and greedy_generate on the
+    card against a CPU copy of the same weights."""
+    import torch
+    from music_generation_tpu_torch.models.lyrics import greedy_generate
+    from music_generation_tpu_torch.models.lyrics.api import GPT2_MAX_LENGTH
+    tok = gpt2_gen.tokenizer
+    gpu = gpt2_gen.model
+    cpu = copy.deepcopy(gpu).cpu()
+    prompt = ([tok.cls_id] + tok.encode("夏天")
+              + [tok.sep_id, tok.token_id("<Pop 流行>"), tok.sep_id])
+    buf = torch.full((1, GPT2_MAX_LENGTH), tok.pad_id, dtype=torch.int64)
+    buf[0, : len(prompt)] = torch.tensor(prompt)
+    plen = torch.tensor([len(prompt)])
+    with torch.no_grad():
+        cpu_buf = greedy_generate(cpu, buf, plen, GPT2_MAX_LENGTH)
+        gpu_buf = greedy_generate(gpu, buf.to(device), plen,
+                                  GPT2_MAX_LENGTH).cpu()
+        cpu_logits = cpu(cpu_buf)
+        gpu_logits = gpu(cpu_buf.to(device))
+    del cpu
+    tie = first_near_tie(cpu_logits, cpu_buf,
+                         range(len(prompt) - 1, GPT2_MAX_LENGTH - 1))
+    upto = GPT2_MAX_LENGTH if tie is None else tie + 1
+    rel = rel_l2(gpu_logits, cpu_logits)
+    same = torch.equal(gpu_buf[:, :upto], cpu_buf[:, :upto])
+    log(f"lyrics phase: GPT-2 teacher-forced logits [1, {GPT2_MAX_LENGTH}, "
+        f"{gpu.cfg.vocab_size}] card vs CPU relative L2 {rel:.3e}; greedy "
+        f"buffer identical over {upto} of {GPT2_MAX_LENGTH} positions "
+        f"(first near tie: {tie})")
+    if not rel <= LOGIT_REL_LIMIT or not same:
+        raise AssertionError(f"GPT-2 card vs CPU: rel {rel}, tokens equal "
+                             f"up to {upto}: {same}")
+    return {"logits_rel_l2": rel, "positions_compared": upto,
+            "first_near_tie": tie, "buf": buf.to(device), "plen": plen}
+
+
+def phase_lyrics(device, t5_gen, gpt2_gen) -> dict:
+    import torch
+    from music_generation_tpu_torch.models.lyrics import (greedy_generate,
+                                                          topk_sample_generate)
+    from music_generation_tpu_torch.models.lyrics.api import (GPT2_MAX_LENGTH,
+                                                              T5_TOP_K)
+    budget = 120  # LyricGeneratorT5's default: min(512, max(48, 8 * 15))
+    t5 = t5_on_card_and_cpu(device, t5_gen, budget)
+    gpt2 = gpt2_on_card_and_cpu(device, gpt2_gen)
+    src, mask = t5.pop("src"), t5.pop("mask")
+    buf, plen = gpt2.pop("buf"), gpt2.pop("plen")
+    gpu_t5, gpu_gpt2 = t5_gen.model, gpt2_gen.model
+    gpt2_steps = GPT2_MAX_LENGTH - 1
+
+    def t5_decode():
+        topk_sample_generate(gpu_t5, t5_gen.generator, src, mask,
+                             max_length=budget, top_k=T5_TOP_K)
+
+    def gpt2_decode():
+        greedy_generate(gpu_gpt2, buf, plen, GPT2_MAX_LENGTH)
+
+    with torch.no_grad():
+        t5["encode_ms"] = cuda_ms(lambda: gpu_t5.encode(src, mask))
+    t5["decode_ms"] = host_ms(t5_decode)
+    t5["ms_per_token"] = (t5["decode_ms"] - t5["encode_ms"]) / budget
+    gpt2["decode_ms"] = host_ms(gpt2_decode)
+    gpt2["ms_per_token"] = gpt2["decode_ms"] / gpt2_steps
+    walls = []
+    for _ in range(3):
+        t0 = time.time()
+        t5_gen.generate("夏天")
+        walls.append(time.time() - t0)
+    t5["generate_wall_s"] = float(np.median(walls))
+    for rec, fn, steps in ((t5, t5_decode, budget),
+                           (gpt2, gpt2_decode, gpt2_steps)):
+        rec["profile"] = profiled(fn)
+        rec["launches_per_token"] = rec["profile"]["kernel_launches"] / steps
+    log(f"lyrics phase: T5 encode {t5['encode_ms']:.3f} ms, "
+        f"{t5['ms_per_token']:.3f} ms per decode token, generate wall "
+        f"{t5['generate_wall_s']:.4f} s for {budget} tokens, "
+        f"{t5['launches_per_token']:.1f} launches per token, device busy "
+        f"{t5['profile']['device_busy_share']:.3f}; GPT-2 "
+        f"{gpt2['ms_per_token']:.3f} ms per token, "
+        f"{gpt2['launches_per_token']:.1f} launches per token, device busy "
+        f"{gpt2['profile']['device_busy_share']:.3f}")
+    return {"t5": t5, "gpt2": gpt2}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -340,10 +580,20 @@ def main() -> int:
 
     record = phase_kernel(device)
 
+    from music_generation_tpu_torch.models.lyrics import build_lyric_generator
+    t0 = time.time()
+    t5_gen = build_lyric_generator("t5", seed=SEED, device=device)
+    gpt2_gen = build_lyric_generator("gpt2", seed=SEED, device=device)
+    n_t5, n_gpt2 = (sum(p.numel() for p in g.model.parameters())
+                    for g in (t5_gen, gpt2_gen))
+    log(f"lyric LMs built in {time.time() - t0:.1f} s: T5 {n_t5:,} "
+        f"parameters, GPT-2 {n_gpt2:,} parameters")
+
     maximum_path.kernel_launches = 0
     maximum_path.plain_calls = 0
     phase_align(device)
-    latencies, breakdown = phase_serve(device)
+    latencies, keyword_rows, breakdown = phase_serve(device, t5_gen,
+                                                     gpt2_gen)
     record["launches"] = maximum_path.kernel_launches
     if record["launches"] < 1 or maximum_path.plain_calls:
         raise AssertionError(f"main path launched the MAS kernel "
@@ -351,8 +601,11 @@ def main() -> int:
                              f"{maximum_path.plain_calls})")
 
     rel = phase_gpu_vs_cpu(device)
-    log(json.dumps({"serve_latency_s": latencies, "serve_profile": breakdown,
-                    "gpu_vs_cpu_rel": rel}, ensure_ascii=False))
+    lyrics = phase_lyrics(device, t5_gen, gpt2_gen)
+    log(json.dumps({"serve_latency_s": latencies,
+                    "serve_keyword": keyword_rows, "serve_profile": breakdown,
+                    "gpu_vs_cpu_rel": rel, "lyrics": lyrics},
+                   ensure_ascii=False))
     log(json.dumps({"kernels": [record]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

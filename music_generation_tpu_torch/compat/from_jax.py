@@ -21,6 +21,8 @@ import torch
 from torch import nn
 
 from ..core.layers import Conv1d, ConvTranspose1d
+from ..models.lyrics.gpt2 import GPT2, GPT2Config
+from ..models.lyrics.t5 import T5, T5Config
 from ..models.melody.transformer import (MelodyConfig, MelodyTransformer,
                                          MSEDurationModel)
 from ..models.svs.visinger import SVSConfig, VISinger
@@ -124,3 +126,28 @@ def melody_state_dicts_from_flax(note_params: dict, duration_params: dict,
     return (state_dict_from_flax(note_params, notes, _melody_rename),
             state_dict_from_flax(duration_params, durations,
                                  _melody_rename))
+
+
+_SUFFIXED = re.compile(r"\b(ln|wi)\.(\d+)\.")
+
+
+def _suffixed_rename(name: str) -> str:
+    """'h.0.ln.1.weight' -> 'h.0.ln_1.weight', 'dec.3.ffn.wi.0.weight' ->
+    'dec.3.ffn.wi_0.weight': the port keeps GPT-2's ln_1/ln_2 and T5's
+    wi_0/wi_1 as named submodules, not lists."""
+    return _SUFFIXED.sub(r"\1_\2.", name)
+
+
+def t5_state_dict_from_flax(params: dict, cfg: T5Config) -> dict:
+    """state_dict for the port's T5(cfg) from the JAX T5 tree."""
+    with torch.device("meta"):
+        model = T5(cfg)
+    return state_dict_from_flax(params, model, _suffixed_rename)
+
+
+def gpt2_state_dict_from_flax(params: dict, cfg: GPT2Config) -> dict:
+    """state_dict for the port's GPT2(cfg) from the JAX GPT2 tree (the LM
+    head is tied to wte, so it has no leaf of its own)."""
+    with torch.device("meta"):
+        model = GPT2(cfg)
+    return state_dict_from_flax(params, model, _suffixed_rename)

@@ -163,6 +163,12 @@ class MelodyGenerator:
             results.append((lyric + "AP", notes, durations))
         return results
 
+    def generate(self, lyric: str):
+        """One sentence, with no previous-sentence conditioning (the JAX
+        twin's generate at index 0). Returns (lyric+'AP', note strings +
+        ['rest'], durations seconds + [0.6])."""
+        return self.generate_song([lyric])[0]
+
     def _format_durations(self, dur_raw, src_row, n_chars: int) -> list[float]:
         vals = np.round(dur_raw).tolist()
         n_valid = int((src_row != 0).sum())

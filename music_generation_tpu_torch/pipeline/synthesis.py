@@ -244,23 +244,28 @@ def tiny_configs(src_vocab: int) -> tuple[MelodyConfig, SVSConfig]:
                       upsample_kernel_sizes=(16, 16, 4, 4)))
 
 
+def build_melody_generator(tiny: bool = False, seed: int = 0, device=None
+                           ) -> MelodyGenerator:
+    """Random-initialised melody generator, full width or tiny, on
+    ``device`` (default cuda)."""
+    # the lyric dictionary covers the full monosyllable charset, sorted as
+    # in the JAX package so checkpoints transfer
+    lyric_dict = lyric_dictionary_from_chars(
+        sorted(load_lexicon().monosyllable.keys()))
+    mcfg = (tiny_configs(lyric_dict.size)[0] if tiny
+            else MelodyConfig(src_vocab=lyric_dict.size, tgt_vocab=37))
+    return MelodyGenerator(lyric_dict, note_dictionary(), cfg=mcfg,
+                           seed=seed, device=device)
+
+
 def build_default_song_synthesizer(tiny: bool = False, n_speakers: int = 3,
                                    seed: int = 0, device=None
                                    ) -> SongSynthesizer:
     """Random-initialised full pipeline (no trained weights ship with the
     repository). Runs on ``device`` (default cuda)."""
     device = resolve_device(device)
-    # the lyric dictionary covers the full monosyllable charset, sorted as
-    # in the JAX package so checkpoints transfer
-    lyric_dict = lyric_dictionary_from_chars(
-        sorted(load_lexicon().monosyllable.keys()))
-    if tiny:
-        mcfg, scfg = tiny_configs(lyric_dict.size)
-    else:
-        mcfg = MelodyConfig(src_vocab=lyric_dict.size, tgt_vocab=37)
-        scfg = SVSConfig()
-    melody = MelodyGenerator(lyric_dict, note_dictionary(), cfg=mcfg,
-                             seed=seed, device=device)
+    melody = build_melody_generator(tiny, seed, device)
+    scfg = tiny_configs(melody.cfg.src_vocab)[1] if tiny else SVSConfig()
     frontend = ScoreFrontend()
     synths = {i: SVSSynthesizer(scfg, seed=seed + i, frontend=frontend,
                                 device=device)

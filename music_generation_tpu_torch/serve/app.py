@@ -5,11 +5,16 @@ wire contract as the reference controllers:
   POST /synthesis_music
     body (json or form): text | keyword, singer_id (0=default, 1, 2)
     -> {code: 200, message, data: {lyrics, audio: <b64 wav>}}
-    errors: 201 missing input (and keyword-only requests: the lyric LMs are
-    not ported yet), 202 length guard (1..500), 203 synth error
+    a keyword (or theme) request first generates its lyrics with the lyric
+    LM (--lyric-model t5 | gpt2)
+    errors: 201 missing input, 202 length guard (1..500) on the given or
+    generated lyrics, 203 synth error
+  POST /profile?seconds=N&dir=NAME -> a torch.profiler trace of live
+    traffic (every thread) under <log_dir>/profile/NAME/
   GET /healthz -> {ok: true}
 
 Run: python -m music_generation_tpu_torch.serve.app --port 5005
+     [--lyric-model t5|gpt2] [--tiny] [--device cpu]
 """
 
 from __future__ import annotations
@@ -18,13 +23,14 @@ import argparse
 import base64
 import json
 import logging
+import math
 import os
 import threading
 import time
 import traceback
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
-from urllib.parse import parse_qs
+from urllib.parse import parse_qs, urlparse
 
 from ..config import ServiceConfig
 
@@ -55,6 +61,7 @@ class MusicGenerationService:
         self.cfg = cfg or ServiceConfig()
         self.logger = logger or make_logger(self.cfg)
         self._lock = threading.Lock()
+        self._profile_lock = threading.Lock()  # one profiler trace at a time
         # cross-request SVS micro-batching: concurrent requests coalesce
         # their sentences into one device call (serve/batching.py); the
         # melody stage is serialized inside SongSynthesizer
@@ -86,8 +93,10 @@ class MusicGenerationService:
                 return None, {"code": 201,
                               "message": "keyword 模式不可用：歌词模型未加载！"}
             self.logger.info("传入关键词:%s", keyword)
+            t0 = time.time()
             text = self.lyrics.generate(keyword).replace("-", "")
             self.logger.info("生成歌词：%s", text)
+            self.logger.info("歌词生成耗时：%.3f 秒。", time.time() - t0)
         else:
             self.logger.info("直接传入歌词:%s", text)
 
@@ -124,6 +133,27 @@ class MusicGenerationService:
             return {"code": 203, "message": "服务器错误，歌声合成出错！"}
 
 
+def capture_profile(trace_dir: str, seconds: float) -> str:
+    """Trace every thread of the process with torch.profiler for
+    ``seconds`` (the device too when a GPU is present) and write a Chrome
+    trace into ``trace_dir``. Returns the trace file's path."""
+    import torch
+    from torch._C._profiler import _ExperimentalConfig
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    # requests run on the HTTP server's threads, not on the capturing one
+    with profile(activities=activities, experimental_config=
+                 _ExperimentalConfig(profile_all_threads=True)) as prof:
+        time.sleep(seconds)
+    os.makedirs(trace_dir, exist_ok=True)
+    path = os.path.join(trace_dir,
+                        time.strftime("trace_%Y%m%d_%H%M%S.json"))
+    prof.export_chrome_trace(path)
+    return path
+
+
 def make_http_server(service: MusicGenerationService, host: str, port: int
                      ) -> ThreadingHTTPServer:
     class Handler(BaseHTTPRequestHandler):
@@ -148,8 +178,60 @@ def make_http_server(service: MusicGenerationService, host: str, port: int
             else:
                 self._send_json({"code": 404, "message": "not found"}, 404)
 
+        def _profile(self):
+            """Capture a trace of live traffic; ?seconds=N (bounded to
+            [0, 60]) sets the window. Traces land under
+            <log_dir>/profile/<dir> (dir picks the subdirectory, not a
+            path), one capture at a time, on a worker with a bounded
+            join."""
+            q = parse_qs(urlparse(self.path).query)
+            try:
+                seconds = float(q.get("seconds", ["2"])[0])
+            except ValueError:
+                seconds = math.nan
+            if not math.isfinite(seconds):
+                self._send_json({"ok": False,
+                                 "message": "seconds must be a number"}, 400)
+                return
+            seconds = min(max(seconds, 0.0), 60.0)
+            sub = os.path.basename(q.get("dir", ["profile"])[0]) or "profile"
+            trace_dir = os.path.join(service.cfg.log_dir, "profile", sub)
+            if not service._profile_lock.acquire(blocking=False):
+                self._send_json({"ok": False,
+                                 "message": "a trace is already running"},
+                                409)
+                return
+            outcome = {}
+
+            def _capture():
+                try:
+                    capture_profile(trace_dir, seconds)
+                except Exception as e:  # reported to the client as a 500
+                    service.logger.error("profile failed:\n%s",
+                                         traceback.format_exc())
+                    outcome["error"] = str(e)
+                finally:
+                    service._profile_lock.release()
+
+            worker = threading.Thread(target=_capture, daemon=True)
+            worker.start()
+            worker.join(timeout=seconds + 30.0)
+            if worker.is_alive():
+                self._send_json({"ok": False,
+                                 "message": "profiler did not finish"}, 504)
+            elif "error" in outcome:
+                self._send_json({"ok": False,
+                                 "message": outcome["error"]}, 500)
+            else:
+                self._send_json({"ok": True, "trace_dir": trace_dir,
+                                 "seconds": seconds})
+
         def do_POST(self):
-            if self.path.split("?")[0].rstrip("/") != "/synthesis_music":
+            route = self.path.split("?")[0].rstrip("/")
+            if route == "/profile":
+                self._profile()
+                return
+            if route != "/synthesis_music":
                 self._send_json({"code": 404, "message": "not found"}, 404)
                 return
             length = int(self.headers.get("Content-Length", 0))
@@ -181,6 +263,8 @@ def main(argv=None):
     parser.add_argument("--host", default=None)
     parser.add_argument("--tiny", action="store_true",
                         help="random tiny models (smoke testing)")
+    parser.add_argument("--lyric-model", default="t5", choices=["t5", "gpt2"],
+                        help="lyric LM for keyword requests")
     parser.add_argument("--device", default="cuda",
                         help="torch device the models run on (default cuda; "
                              "raises when no GPU is present)")
@@ -197,18 +281,21 @@ def main(argv=None):
         cfg.tiny = True
 
     logger = make_logger(cfg)
-    logger.info("loading models (tiny=%s, device=%s)...", cfg.tiny,
-                args.device)
+    logger.info("loading models (tiny=%s, lyric model=%s, device=%s)...",
+                cfg.tiny, args.lyric_model, args.device)
     import torch
     # full float32, the precision the port is held to against the JAX
     # package (cuDNN would otherwise run the convolutions in TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from ..models.lyrics import build_lyric_generator
     from ..pipeline import build_default_song_synthesizer
     songs = build_default_song_synthesizer(tiny=cfg.tiny,
                                            n_speakers=cfg.n_speakers,
                                            device=args.device)
-    service = MusicGenerationService(songs, None, cfg, logger)
+    lyrics = build_lyric_generator(args.lyric_model, tiny=cfg.tiny,
+                                   device=args.device)
+    service = MusicGenerationService(songs, lyrics, cfg, logger)
     server = make_http_server(service, cfg.host, cfg.port)
     logger.info("serving on %s:%d", cfg.host, cfg.port)
     try:

@@ -35,7 +35,7 @@ from music_generation_tpu_torch.pipeline.synthesis import (
     SongSynthesizer, SVSSynthesizer, build_default_song_synthesizer)
 from music_generation_tpu_torch.serve.app import (MusicGenerationService,
                                                   make_http_server)
-from torch_port_util import melody_pair, t, visinger_pair
+from torch_port_util import melody_pair, t, tiny_songs, visinger_pair
 
 LYRICS = "小小的天有大大的梦想，隐形的翅膀。带我飞过绝望"
 
@@ -96,10 +96,8 @@ def test_slice_matches_jax_stages():
 
 @pytest.fixture(scope="module")
 def server(tmp_path_factory):
-    songs = build_default_song_synthesizer(tiny=True, n_speakers=1,
-                                           device="cpu")
     cfg = ServiceConfig(log_dir=str(tmp_path_factory.mktemp("logs")))
-    service = MusicGenerationService(songs, None, cfg)
+    service = MusicGenerationService(tiny_songs(), None, cfg)
     srv = make_http_server(service, "127.0.0.1", 0)
     thread = threading.Thread(target=srv.serve_forever, daemon=True)
     thread.start()

@@ -11,6 +11,8 @@ compat.from_jax, to its PyTorch twin.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import struct
 from unittest import mock
 
 import jax
@@ -28,7 +30,12 @@ from music_generation_tpu_torch.compat import (melody_state_dicts_from_flax,
 from music_generation_tpu_torch.models.melody import api as t_api
 from music_generation_tpu_torch.models.melody import transformer as t_tr
 from music_generation_tpu_torch.models.svs import visinger as tv
-from music_generation_tpu_torch.pipeline.synthesis import tiny_configs
+from music_generation_tpu_torch.pipeline.synthesis import (
+    build_default_song_synthesizer, tiny_configs)
+
+# The tiny-width port tests run no faster on several intra-op threads, and
+# under pytest-xdist those threads take cores from the other workers.
+torch.set_num_threads(1)
 
 # tiny SVS batch: B sentences of T phones, F frames
 B, T, F = 2, 16, 128
@@ -142,3 +149,67 @@ def melody_pair(sentences, seed=0, audible=False):
     tgen.note_model.load_state_dict(note_sd)
     tgen.duration_model.load_state_dict(dur_sd)
     return jgen, tgen
+
+
+@functools.lru_cache(maxsize=None)
+def tiny_songs():
+    """The tiny random song synthesizer on the CPU (one singer), built once
+    per process and shared by the service tests."""
+    return build_default_song_synthesizer(tiny=True, n_speakers=1,
+                                          device="cpu")
+
+
+# ---- tokenizer artifacts the lyric tests write themselves ----------------
+
+LYRIC_CHARS = "的我你风花雪月爱梦想飞歌春秋海山云雨星光心天夏"
+
+
+def write_wordpiece_vocab(path) -> str:
+    """A BERT vocab.txt small enough for a vocab-64 model (the GPT-2
+    wordpiece tokenizer adds its 8 style/EOS tokens on top)."""
+    tokens = (["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", "，", "。", "!",
+               "he", "##llo", "##l", "##o", "wor", "##ld", "a", "b"]
+              + list(LYRIC_CHARS) + ["关", "键", "词"])
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("\n".join(tokens) + "\n")
+    return str(path)
+
+
+def _varint(n: int) -> bytes:
+    out = bytearray()
+    while True:
+        b, n = n & 0x7F, n >> 7
+        out.append(b | (0x80 if n else 0))
+        if not n:
+            return bytes(out)
+
+
+def _field(num: int, wire: int, payload) -> bytes:
+    key = _varint(num << 3 | wire)
+    if wire == 0:
+        return key + _varint(payload)
+    if wire == 5:
+        return key + struct.pack("<f", payload)
+    return key + _varint(len(payload)) + payload
+
+
+def write_spm_model(path) -> str:
+    """A sentencepiece unigram ModelProto written field by field: T5's
+    special layout (pad 0 and eos 1 as CONTROL, unk 2), scored NORMAL
+    pieces with multi-character ones, TrainerSpec.model_type=1, no
+    precompiled charsmap."""
+    rng = np.random.RandomState(7)
+    pieces = [("<pad>", 0.0, 3), ("</s>", 0.0, 3), ("<unk>", 0.0, 2),
+              ("▁", -2.0, 1), ("关键词", -3.0, 1), ("长度", -3.5, 1),
+              ("15", -4.0, 1), ("夏天", -4.5, 1), ("▁关键词", -2.5, 1)]
+    pieces += [(ch, float(-5.0 - rng.rand() * 3), 1)
+               for ch in "关键词长度夏天：1523" + LYRIC_CHARS.replace("天", "")
+               .replace("夏", "")]
+    blob = b"".join(_field(1, 2, _field(1, 2, p.encode()) + _field(2, 5, s)
+                           + _field(3, 0, t)) for p, s, t in pieces)
+    blob += _field(2, 2, _field(3, 0, 1) + _field(40, 0, 2)
+                   + _field(42, 0, 1) + _field(43, 0, 0))
+    blob += _field(3, 2, _field(3, 0, 1) + _field(4, 0, 1) + _field(5, 0, 1))
+    with open(path, "wb") as f:
+        f.write(blob)
+    return str(path)
