@@ -23,11 +23,21 @@ Phases, each fatal on failure (no exception is caught):
               to the first near tie; encode and per-token decode times,
               LyricGeneratorT5.generate's wall, launches per token and the
               device busy share under torch.profiler
-Launch counts are zeroed just before phase 3 and read after phase 4 (the
-slice's main path; the lyric LMs launch no hand-written kernel). All phases
-run in full float32: TF32 is off for matmuls and cuDNN convolutions. The
-last stdout line is the result JSON; it is printed only when every phase
-passed. Exits non-zero without a CUDA device.
+  7. train    full-width GAN training steps (SVSConfig(), the full
+              MultiPeriodDiscriminator, B=8, 64 phones, 480 frames,
+              --durations mas) through the port's trainer: losses finite,
+              weights moved, the MAS kernel launched twice per step and the
+              plain version never; the kernel against the plain version on
+              the neg_cent a step produced; one B=2 step on the card
+              against the CPU (same weights and draws, dataset durations,
+              dropout off): every loss term and every parameter gradient;
+              warm ms per step, samples/s, peak memory and a profile
+Launch counts are zeroed just before each main path and read just after
+it: phases 3-4 (the served slices) and phase 7 (training; its count is
+the one the kernels line reports). The lyric LMs launch no hand-written
+kernel. All phases run in full float32: TF32 is off for matmuls and cuDNN
+convolutions. The last stdout line is the result JSON; it is printed only
+when every phase passed. Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -63,6 +73,12 @@ KEYWORD_REQUESTS = [{"keyword": "夏天"}, {"keyword": "星空", "singer_id": 1}
                     {"theme": "离别"}]
 LOGIT_REL_LIMIT = 1e-4    # card against CPU, teacher-forced, TF32 off
 NEAR_TIE = 1e-3           # CPU top-two logit gap below which greedy may part
+TRAIN_BATCH = 8           # the JAX trainer's --batch-size default
+TRAIN_STEPS = 5           # warm, timed; after one cold step, before a
+                          # profiled one
+LOSS_REL_LIMIT = 1e-4     # card against CPU, each loss term
+GRAD_REL_LIMIT = 1e-3     # card against the CPU's float64, each parameter
+                          # gradient (L2), or 2x the CPU float32's error
 
 
 def log(msg: str) -> None:
@@ -557,27 +573,265 @@ def phase_lyrics(device, t5_gen, gpt2_gen) -> dict:
     return {"t5": t5, "gpt2": gpt2}
 
 
-def main() -> int:
+def grads_close(card: dict, cpu: dict, exact: dict) -> tuple[dict, list]:
+    """Hold each float32 gradient of the card against the float64 CPU
+    gradient ``exact``: within GRAD_REL_LIMIT relative L2, or no more
+    than twice as far from it as the CPU's own float32 gradient ``cpu``.
+    (At this random init the decoder's and the spec decoder's gradients
+    are ill-conditioned in float32: the CPU's float32 misses float64 by up
+    to 0.5 % there too.) Attention key biases have an exact gradient of
+    zero (softmax ignores a shift shared by all of a query's scores), so
+    both sides hold rounding only: held within 1e-6 of the largest
+    gradient norm. A gradient that is exactly zero on the CPU (behind the
+    zero-initialised flow projections) must be zero on the card.
+    Returns the worst errors and the tensors that failed."""
+    scale = max(float(w.norm()) for w in exact.values())
+    worst = {"card_vs_f64": 0.0, "cpu_vs_f64": 0.0, "card_vs_cpu": 0.0}
+    failed = []
+    for name, w in exact.items():
+        g, c = card[name].double(), cpu[name].double()
+        if not c.any():
+            if g.any():
+                failed.append((name, "zero on the CPU, not on the card"))
+            continue
+        if name.endswith(".k.bias"):
+            if not float((g - w).norm()) <= 1e-6 * scale:
+                failed.append((name, float((g - w).norm())))
+            continue
+        errs = {"card_vs_f64": float((g - w).norm() / w.norm()),
+                "cpu_vs_f64": float((c - w).norm() / w.norm()),
+                "card_vs_cpu": float((g - c).norm() / c.norm())}
+        for k, v in errs.items():
+            worst[k] = max(worst[k], v)
+        if not errs["card_vs_f64"] <= max(GRAD_REL_LIMIT,
+                                          2 * errs["cpu_vs_f64"]):
+            failed.append((name, errs))
+    return worst, failed
+
+
+def train_loss_and_grads(device, controls=None) -> dict:
+    """One full-width B=2 generator and discriminator loss and gradient,
+    dataset durations, dropout off, the same weights and draws: on the
+    CPU in float32 (``cpu``) and float64 (``cpu_f64``) and on the card in
+    float32 (``card``). ``controls`` maps more card tags to (context
+    manager factory, whole): entered around the whole computation when
+    ``whole``, else around the generator forward only (its outputs are
+    cast back to float32). Returns tag -> (loss terms, gradients on the
+    CPU)."""
+    import contextlib
     import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False; this script "
-              "needs a CUDA device", file=sys.stderr)
-        return 1
-    from music_generation_tpu_torch.ops import build, maximum_path
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    device = torch.device("cuda", 0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    log(smi.stdout.strip().splitlines()[0])
-    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
-        f"python {sys.version.split()[0]}")
+    from music_generation_tpu_torch.models.svs import SVSConfig
+    from music_generation_tpu_torch.train import (TrainConfig, create_states,
+                                                  synthetic_batch, to_device,
+                                                  tool_shapes, trainer)
+    cfg, tc = SVSConfig(), TrainConfig()
+    phones, frames = tool_shapes(False)
+    cpu_gen, cpu_disc = (s.model for s in create_states(cfg, tc, "cpu"))
+    batch = synthetic_batch(cfg, batch=2, t_phones=phones, t_frames=frames,
+                            seed=SEED + 5)
+    rng = np.random.RandomState(SEED + 5)
+    shape = (2, frames, cfg.inter_channels)
+    draws = {"noise": rng.randn(*shape), "noise_rev": rng.randn(*shape),
+             "slice_u": rng.uniform(0, 1, 2).astype(np.float32)}
+    plain = (contextlib.nullcontext, True)
+    runs = [("cpu", "cpu", torch.float32, plain),
+            ("cpu_f64", "cpu", torch.float64, plain),
+            ("card", device, torch.float32, plain)]
+    runs += [("card_" + tag, device, torch.float32, control)
+             for tag, control in (controls or {}).items()]
+    results = {}
+    for tag, dev, dtype, (ctx, whole) in runs:
+        gen = copy.deepcopy(cpu_gen).to(dev, dtype)
+        disc = copy.deepcopy(cpu_disc).to(dev, dtype)
+        b = {k: v.to(dtype) if v.is_floating_point() else v
+             for k, v in to_device(batch, dev).items()}
+        with ctx() if whole else contextlib.nullcontext():
+            with contextlib.nullcontext() if whole else ctx():
+                out = trainer.gen_forward(gen, b, tc, deterministic=True, **{
+                    k: torch.from_numpy(v).to(
+                        dev, dtype if k != "slice_u" else torch.float32)
+                    for k, v in draws.items()})
+            out = {k: v.to(dtype) if v.is_floating_point() else v
+                   for k, v in out.items()}
+            total, metrics = trainer.generator_loss(disc, out, b, cfg, tc)
+            g_names = [n for n, _ in gen.named_parameters()]
+            g_grads = torch.autograd.grad(total, list(gen.parameters()))
+            d_loss = trainer.discriminator_loss(disc, out, b, cfg, tc)
+            d_names = [n for n, _ in disc.named_parameters()]
+            d_grads = torch.autograd.grad(d_loss, list(disc.parameters()))
+        metrics["loss_disc"] = d_loss.detach()
+        results[tag] = (
+            {k: float(v) for k, v in metrics.items()
+             if k.startswith("loss_")},
+            {f"gen.{n}": g.cpu() for n, g in zip(g_names, g_grads)}
+            | {f"disc.{n}": g.cpu() for n, g in zip(d_names, d_grads)})
+        del gen, disc, out, total, g_grads, d_grads
+    return results
 
+
+def judge_train_step(results: dict, card: str = "card") -> dict:
+    """Each of ``card``'s loss terms against the CPU's float32 one (within
+    LOSS_REL_LIMIT), each gradient as grads_close holds it."""
+    cpu_loss = results["cpu"][0]
+    loss_rel = {k: abs(results[card][0][k] - v) / abs(v)
+                for k, v in cpu_loss.items()}
+    worst, grads_failed = grads_close(results[card][1], results["cpu"][1],
+                                      results["cpu_f64"][1])
+    return {"loss_rel": loss_rel, "grad_worst_rel_l2": worst,
+            "n_grad_tensors": len(results["cpu"][1]),
+            "losses_failed": sorted(k for k, v in loss_rel.items()
+                                    if not v <= LOSS_REL_LIMIT),
+            "grads_failed": grads_failed}
+
+
+def train_step_on_card_and_cpu(device) -> dict:
+    """One full-width B=2 step's loss terms on the card against the CPU's
+    float32 ones, and its gradients against the CPU's float64 ones (see
+    train_loss_and_grads, judge_train_step). MAS is kept out: card and
+    CPU round neg_cent differently, so a near tie may flip the path."""
+    rep = judge_train_step(train_loss_and_grads(device))
+    if rep["losses_failed"]:
+        raise AssertionError(f"card vs CPU loss terms: "
+                             f"{rep['losses_failed']} {rep['loss_rel']}")
+    if rep["grads_failed"]:
+        raise AssertionError(f"card gradients: {rep['grads_failed']}")
+    worst = rep["grad_worst_rel_l2"]
+    log(f"train phase: full-width B=2 step, card vs CPU: "
+        f"{len(rep['loss_rel'])} loss terms, worst relative error "
+        f"{max(rep['loss_rel'].values()):.3e}; {rep['n_grad_tensors']} "
+        f"gradient tensors, worst relative L2 against float64: card "
+        f"{worst['card_vs_f64']:.3e}, CPU float32 {worst['cpu_vs_f64']:.3e} "
+        f"(card vs CPU {worst['card_vs_cpu']:.3e})")
+    return {k: rep[k] for k in ("loss_rel", "grad_worst_rel_l2",
+                                "n_grad_tensors")}
+
+
+def phase_train(device) -> dict:
+    """Full-width GAN training steps with MAS durations through the port's
+    trainer API (the main path of this slice)."""
+    import torch
+    from music_generation_tpu_torch.models.svs import SVSConfig
+    from music_generation_tpu_torch.ops import (maximum_path,
+                                                maximum_path_torch,
+                                                monotonic_align)
+    from music_generation_tpu_torch.train import (TrainConfig, create_states,
+                                                  make_train_step,
+                                                  synthetic_batch, to_device,
+                                                  tool_shapes)
+    cfg = SVSConfig()
+    tc = TrainConfig(use_mas=True, warmup_steps=0)
+    phones, frames = tool_shapes(False)
     t0 = time.time()
-    build.build_all()
-    log(f"build phase: {build.kernel_sources()} in {time.time() - t0:.1f} s")
+    gen_state, disc_state = create_states(cfg, tc, device)
+    step = make_train_step(cfg, tc)
+    generator = torch.Generator(device).manual_seed(SEED)
+    n_steps = TRAIN_STEPS + 2
+    batches = [to_device(synthetic_batch(cfg, batch=TRAIN_BATCH,
+                                         t_phones=phones, t_frames=frames,
+                                         seed=i), device)
+               for i in range(n_steps)]
+    n_params = [sum(p.numel() for p in s.model.parameters())
+                for s in (gen_state, disc_state)]
+    before = {f"{tag}.{n}": p.detach().clone()
+              for tag, s in (("gen", gen_state), ("disc", disc_state))
+              for n, p in s.model.named_parameters()}
+    torch.cuda.synchronize()
+    log(f"train phase: full-width states built in {time.time() - t0:.1f} s "
+        f"(generator {n_params[0]:,}, discriminator {n_params[1]:,} "
+        f"parameters)")
 
+    # the neg_cent and mask of the first MAS call of the first step
+    live = []
+    neg_cent_fn = monotonic_align.mas_neg_cent
+
+    def capture(*args, **kwargs):
+        out = neg_cent_fn(*args, **kwargs)
+        if not live:
+            live.append(tuple(x.clone() for x in out))
+        return out
+
+    rows = []
+
+    def run(i):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        metrics = step(gen_state, disc_state, batches[i], generator)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3
+        values = {k: float(v) for k, v in metrics.items()}
+        if not all(np.isfinite(v) for v in values.values()):
+            raise AssertionError(f"train step {i}: {values}")
+        rows.append({"step": i, "ms": ms, **values})
+
+    maximum_path.kernel_launches = 0
+    maximum_path.plain_calls = 0
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    monotonic_align.mas_neg_cent = capture
+    try:
+        run(0)
+    finally:
+        monotonic_align.mas_neg_cent = neg_cent_fn
+    # every submodule of both models moved in the first step
+    moved = {}
+    for tag, s in (("gen", gen_state), ("disc", disc_state)):
+        for n, p in s.model.named_parameters():
+            key = f"{tag}.{n}"
+            sub = ".".join(key.split(".")[:2])
+            moved[sub] = moved.get(sub, 0) + (not torch.equal(before[key], p))
+    del before
+    still = sorted(k for k, v in moved.items() if not v)
+    if still:
+        raise AssertionError(f"no parameter of {still} moved in step 1")
+    for i in range(1, TRAIN_STEPS + 1):
+        run(i)
+    peak = torch.cuda.max_memory_allocated()
+    prof = profiled(lambda: run(TRAIN_STEPS + 1))
+    launches = maximum_path.kernel_launches
+    if launches != 2 * n_steps or maximum_path.plain_calls:
+        raise AssertionError(
+            f"{n_steps} training steps launched the MAS kernel {launches} "
+            f"times (plain calls {maximum_path.plain_calls}); want "
+            f"{2 * n_steps} and 0")
+
+    # the kernel against the plain version on the step's own neg_cent
+    neg_cent, attn = live[0]
+    got = maximum_path(neg_cent, attn)
+    want = maximum_path_torch(neg_cent, attn)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("maximum_path kernel disagrees with the plain "
+                             "version on a training step's neg_cent")
+    warm = [r["ms"] for r in rows[1:TRAIN_STEPS + 1]]
+    ms = float(np.median(warm))
+    result = {"cold_ms": rows[0]["ms"], "warm_ms": warm,
+              "ms_per_step": ms,
+              "samples_per_s": TRAIN_BATCH / ms * 1e3,
+              "peak_memory_bytes": peak, "resident_bytes_before": resident,
+              "mas_launches": launches, "live_neg_cent_shape":
+              list(neg_cent.shape), "profile": prof,
+              "losses_first_last": [
+                  {k: v for k, v in rows[j].items() if k.startswith("loss")}
+                  for j in (0, -1)]}
+    log(f"train phase: {n_steps} full-width steps (B={TRAIN_BATCH}, "
+        f"{phones} phones, {frames} frames, MAS): cold {rows[0]['ms']:.1f} "
+        f"ms, warm {ms:.1f} ms per step, {result['samples_per_s']:.2f} "
+        f"samples/s, peak memory {peak / 2 ** 30:.2f} GiB; MAS kernel "
+        f"{launches} launches, plain 0; kernel == plain on the step's "
+        f"neg_cent {list(neg_cent.shape)}; profiled step: device busy "
+        f"{prof['device_busy_share']:.3f}, {prof['kernel_launches']} "
+        f"launches")
+    del gen_state, disc_state, batches, live
+    torch.cuda.empty_cache()
+    result["gpu_vs_cpu"] = train_step_on_card_and_cpu(device)
+    return result
+
+
+def phases_before_train(device) -> dict:
+    """Phases 2-6: the kernel's record, then the served slices (their MAS
+    launches counted), the card against the CPU and the lyric LMs."""
+    import torch
+    from music_generation_tpu_torch.ops import maximum_path
     record = phase_kernel(device)
 
     from music_generation_tpu_torch.models.lyrics import build_lyric_generator
@@ -594,18 +848,46 @@ def main() -> int:
     phase_align(device)
     latencies, keyword_rows, breakdown = phase_serve(device, t5_gen,
                                                      gpt2_gen)
-    record["launches"] = maximum_path.kernel_launches
-    if record["launches"] < 1 or maximum_path.plain_calls:
+    if maximum_path.kernel_launches < 1 or maximum_path.plain_calls:
         raise AssertionError(f"main path launched the MAS kernel "
-                             f"{record['launches']} times (plain calls "
-                             f"{maximum_path.plain_calls})")
+                             f"{maximum_path.kernel_launches} times (plain "
+                             f"calls {maximum_path.plain_calls})")
 
     rel = phase_gpu_vs_cpu(device)
     lyrics = phase_lyrics(device, t5_gen, gpt2_gen)
-    log(json.dumps({"serve_latency_s": latencies,
-                    "serve_keyword": keyword_rows, "serve_profile": breakdown,
-                    "gpu_vs_cpu_rel": rel, "lyrics": lyrics},
-                   ensure_ascii=False))
+    del t5_gen, gpt2_gen
+    torch.cuda.empty_cache()
+    return {"record": record, "serve_latency_s": latencies,
+            "serve_keyword": keyword_rows, "serve_profile": breakdown,
+            "gpu_vs_cpu_rel": rel, "lyrics": lyrics}
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "needs a CUDA device", file=sys.stderr)
+        return 1
+    from music_generation_tpu_torch.ops import build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    log(smi.stdout.strip().splitlines()[0])
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]}")
+
+    t0 = time.time()
+    build.build_all()
+    log(f"build phase: {build.kernel_sources()} in {time.time() - t0:.1f} s")
+
+    earlier = phases_before_train(device)
+    train = phase_train(device)
+    record = earlier.pop("record")
+    record["launches"] = train["mas_launches"]
+    log(json.dumps(earlier | {"train": train}, ensure_ascii=False))
     log(json.dumps({"kernels": [record]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

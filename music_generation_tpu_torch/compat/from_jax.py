@@ -4,6 +4,7 @@ The trees come in as nested dicts of numpy arrays (flax's ``params``
 collection, with or without the outer ``{"params": ...}``); this module
 imports no JAX. Layouts:
   - conv             [K, I, O] -> [O, I, K]
+  - 2-D conv         [H, W, I, O] (HWIO) -> [O, I, H, W]
   - transposed conv  [K, I, O] -> flipped along K, then [I, O, K]
   - dense            [in, out] -> [out, in]
   - weight norm: (kernel, g) kept as is (the port stores the same pair)
@@ -25,6 +26,7 @@ from ..models.lyrics.gpt2 import GPT2, GPT2Config
 from ..models.lyrics.t5 import T5, T5Config
 from ..models.melody.transformer import (MelodyConfig, MelodyTransformer,
                                          MSEDurationModel)
+from ..models.svs.hifigan import MultiPeriodDiscriminator
 from ..models.svs.visinger import SVSConfig, VISinger
 
 _INDEXED = re.compile(r"^([a-z][a-z0-9]*(?:_[a-z][a-z0-9]*)*)_(\d+)(?:_(\d+))?$")
@@ -66,6 +68,8 @@ def _convert(module: nn.Module, name: str, value: np.ndarray) -> np.ndarray:
         return np.transpose(value[::-1], (1, 2, 0))
     if isinstance(module, Conv1d):
         return np.transpose(value, (2, 1, 0))
+    if isinstance(module, nn.Conv2d):
+        return np.transpose(value, (3, 2, 0, 1))
     if isinstance(module, nn.Linear):
         return value.T
     return value
@@ -103,6 +107,15 @@ def visinger_state_dict_from_flax(params: dict, cfg: SVSConfig) -> dict:
     (which must hold every submodule, spec_encoder included)."""
     with torch.device("meta"):
         model = VISinger(cfg)
+    return state_dict_from_flax(params, model)
+
+
+def mpd_state_dict_from_flax(params: dict) -> dict:
+    """state_dict for the port's MultiPeriodDiscriminator() from the JAX
+    MultiPeriodDiscriminator tree (disc_s/conv_{i}/{kernel,g,bias},
+    disc_p{p}/conv_{i}/{kernel,bias}, ...)."""
+    with torch.device("meta"):
+        model = MultiPeriodDiscriminator()
     return state_dict_from_flax(params, model)
 
 

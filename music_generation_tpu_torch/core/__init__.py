@@ -3,15 +3,16 @@
 from .attention import RelativeMultiHeadAttention, TransformerEncoder
 from .flows import ResidualCouplingBlock, ResidualCouplingLayer, flip
 from .layers import (LRELU_SLOPE, FFN, Conv1d, ConvTranspose1d, LayerNorm1d,
-                     conv_ntc)
-from .masking import (expand_by_durations, feature_mask, sequence_mask,
-                      slice_segments)
+                     conv_ntc, dropout)
+from .masking import (expand_by_durations, feature_mask, rand_slice_segments,
+                      sequence_mask, slice_segments)
 from .wavenet import WaveNet
 
 __all__ = [
     "RelativeMultiHeadAttention", "TransformerEncoder",
     "ResidualCouplingBlock", "ResidualCouplingLayer", "flip", "LRELU_SLOPE",
-    "FFN", "Conv1d", "ConvTranspose1d", "LayerNorm1d", "conv_ntc",
-    "expand_by_durations", "feature_mask", "sequence_mask", "slice_segments",
+    "FFN", "Conv1d", "ConvTranspose1d", "LayerNorm1d", "conv_ntc", "dropout",
+    "expand_by_durations", "feature_mask", "rand_slice_segments",
+    "sequence_mask", "slice_segments",
     "WaveNet",
 ]

@@ -7,11 +7,13 @@ post-norm residual blocks). Layout [B, T, C]; masks [B, T, 1].
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import FFN, Conv1d, LayerNorm1d, conv_ntc
+from .layers import FFN, Conv1d, LayerNorm1d, conv_ntc, dropout
 
 MASK_VALUE = -1e4
 
@@ -45,10 +47,12 @@ def _window_embeddings(emb: torch.Tensor, length: int,
 class RelativeMultiHeadAttention(nn.Module):
     """Self-attention with windowed relative key/value embeddings."""
 
-    def __init__(self, channels: int, n_heads: int, window_size: int = 4):
+    def __init__(self, channels: int, n_heads: int, window_size: int = 4,
+                 dropout_rate: float = 0.0):
         super().__init__()
         self.channels, self.n_heads, self.window_size = \
             channels, n_heads, window_size
+        self.dropout_rate = dropout_rate
         d_k = channels // n_heads
         self.q = Conv1d(channels, channels, 1)
         self.k = Conv1d(channels, channels, 1)
@@ -61,8 +65,9 @@ class RelativeMultiHeadAttention(nn.Module):
         self.emb_rel_v = nn.Parameter(
             torch.randn(1, 2 * window_size + 1, d_k) * d_k ** -0.5)
 
-    def forward(self, x: torch.Tensor, attn_mask: torch.Tensor
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, attn_mask: torch.Tensor,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x [B, T, C]; attn_mask [B, 1, T, T] (0 = masked)."""
         b, t, c = x.shape
         h, d_k = self.n_heads, c // self.n_heads
@@ -78,6 +83,7 @@ class RelativeMultiHeadAttention(nn.Module):
         scores = scores + _relative_to_absolute(q @ rel_k.T)
         scores = scores.masked_fill(attn_mask == 0, MASK_VALUE)
         p = torch.softmax(scores, dim=-1)
+        p = dropout(p, self.dropout_rate, deterministic, generator)
         out = p @ v
         rel_v = _window_embeddings(self.emb_rel_v, t, self.window_size)
         out = out + _absolute_to_relative(p) @ rel_v
@@ -90,25 +96,33 @@ class TransformerEncoder(nn.Module):
 
     def __init__(self, hidden_channels: int, filter_channels: int,
                  n_heads: int, n_layers: int, kernel_size: int = 1,
-                 window_size: int = 4):
+                 dropout_rate: float = 0.0, window_size: int = 4):
         super().__init__()
+        self.dropout_rate = dropout_rate
         self.attn = nn.ModuleList(
-            RelativeMultiHeadAttention(hidden_channels, n_heads, window_size)
+            RelativeMultiHeadAttention(hidden_channels, n_heads, window_size,
+                                       dropout_rate)
             for _ in range(n_layers))
         self.norm1 = nn.ModuleList(
             LayerNorm1d(hidden_channels) for _ in range(n_layers))
         self.ffn = nn.ModuleList(
             FFN(hidden_channels, hidden_channels, filter_channels,
-                kernel_size) for _ in range(n_layers))
+                kernel_size, dropout_rate) for _ in range(n_layers))
         self.norm2 = nn.ModuleList(
             LayerNorm1d(hidden_channels) for _ in range(n_layers))
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: torch.Tensor,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         m = mask[..., 0]
         attn_mask = (m[:, None, None, :] * m[:, None, :, None])
         x = x * mask
         for attn, norm1, ffn, norm2 in zip(self.attn, self.norm1, self.ffn,
                                            self.norm2):
-            x = norm1(x + attn(x, attn_mask))
-            x = norm2(x + ffn(x, mask))
+            y = attn(x, attn_mask, deterministic, generator)
+            x = norm1(x + dropout(y, self.dropout_rate, deterministic,
+                                  generator))
+            y = ffn(x, mask, deterministic, generator)
+            x = norm2(x + dropout(y, self.dropout_rate, deterministic,
+                                  generator))
         return x * mask

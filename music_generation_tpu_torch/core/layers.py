@@ -13,11 +13,27 @@ the dim 0 that torch.nn.utils.weight_norm would pick).
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 LRELU_SLOPE = 0.1
+
+
+def dropout(x: torch.Tensor, rate: float, deterministic: bool = True,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """flax ``nn.Dropout``: with ``deterministic`` False, zero each element
+    with probability ``rate`` (drawn from ``generator``) and scale the rest
+    by 1 / (1 - rate). A module's training mode plays no part."""
+    if deterministic or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    draw = torch.rand(x.shape, generator=generator, device=x.device,
+                      dtype=x.dtype)
+    return torch.where(draw < keep, x / keep, torch.zeros((), dtype=x.dtype,
+                                                          device=x.device))
 
 
 def same_pad(kernel_size: int, dilation: int = 1) -> tuple[int, int]:
@@ -30,25 +46,26 @@ def lecun_normal_(w: torch.Tensor, fan_in: int, scale: float = 1.0):
 
 
 class Conv1d(nn.Module):
-    """1-D conv on [B, C, T] with 'same' padding (JAX split for even spans)
-    and optional weight norm (kernel, g)."""
+    """1-D conv on [B, C, T] with 'same' padding (JAX split for even spans),
+    optional channel groups and optional weight norm (kernel, g)."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 1, stride: int = 1, dilation: int = 1,
-                 bias: bool = True, weight_norm: bool = False,
-                 init_scale: float = 1.0):
+                 groups: int = 1, bias: bool = True,
+                 weight_norm: bool = False, init_scale: float = 1.0):
         super().__init__()
-        self.stride, self.dilation = stride, dilation
+        self.stride, self.dilation, self.groups = stride, dilation, groups
         self.pad = same_pad(kernel_size, dilation)
         self.weight = nn.Parameter(
-            torch.empty(out_channels, in_channels, kernel_size))
+            torch.empty(out_channels, in_channels // groups, kernel_size))
         self.g = nn.Parameter(torch.empty(out_channels)) if weight_norm \
             else None
         self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
         if init_scale == 0.0:
             nn.init.zeros_(self.weight)
         else:
-            lecun_normal_(self.weight, in_channels * kernel_size, init_scale)
+            lecun_normal_(self.weight, in_channels // groups * kernel_size,
+                          init_scale)
         if self.g is not None:
             with torch.no_grad():
                 self.g.copy_(self.weight.flatten(1).norm(dim=1))
@@ -66,13 +83,13 @@ class Conv1d(nn.Module):
             left = 0
         return F.conv1d(x, self.effective_weight(), self.bias,
                         stride=self.stride, padding=left,
-                        dilation=self.dilation)
+                        dilation=self.dilation, groups=self.groups)
 
 
 def conv_ntc(conv: Conv1d, x: torch.Tensor) -> torch.Tensor:
     """Apply a Conv1d to channels-last [B, T, C]; a 1x1 conv is a linear."""
     w = conv.effective_weight()
-    if w.shape[-1] == 1 and conv.stride == 1:
+    if w.shape[-1] == 1 and conv.stride == 1 and conv.groups == 1:
         return F.linear(x, w[..., 0], conv.bias)
     return conv(x.transpose(1, 2)).transpose(1, 2)
 
@@ -119,13 +136,18 @@ class FFN(nn.Module):
     (attentions.FFN of the reference)."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 filter_channels: int, kernel_size: int):
+                 filter_channels: int, kernel_size: int,
+                 dropout_rate: float = 0.0):
         super().__init__()
+        self.dropout_rate = dropout_rate
         self.conv_1 = Conv1d(in_channels, filter_channels, kernel_size)
         self.conv_2 = Conv1d(filter_channels, out_channels, kernel_size)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: torch.Tensor,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         m = mask.transpose(1, 2)
         h = torch.relu(self.conv_1((x * mask).transpose(1, 2)))
+        h = dropout(h, self.dropout_rate, deterministic, generator)
         h = self.conv_2(h * m)
         return (h * m).transpose(1, 2)

@@ -6,6 +6,8 @@ with torch gathers and searchsorted.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
@@ -42,6 +44,25 @@ def expand_by_durations(x: torch.Tensor, durations: torch.Tensor, t_y: int
 
 def slice_segments(x: torch.Tensor, starts: torch.Tensor,
                    segment_size: int) -> torch.Tensor:
-    """Gather fixed-size time slices: x [B, T, C], starts [B] -> [B, S, C]."""
+    """Gather fixed-size time slices: x [B, T, C], starts [B] -> [B, S, C].
+    As jax.lax.dynamic_slice_in_dim: a negative start counts from the end
+    (plus T), then each start is clamped to [0, T - S] so its slice fits."""
+    t = x.shape[1]
+    starts = torch.where(starts < 0, starts + t, starts).clamp(
+        0, max(t - segment_size, 0))
     idx = starts[:, None] + torch.arange(segment_size, device=x.device)
     return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
+
+
+def rand_slice_segments(x: torch.Tensor, lengths: torch.Tensor,
+                        segment_size: int,
+                        u: Optional[torch.Tensor] = None,
+                        generator: Optional[torch.Generator] = None):
+    """Random training slice per batch item: starts = int(u * max(len - S
+    + 1, 1)) with u [B] uniform in [0, 1), passed in or drawn from
+    ``generator``. Returns (slices [B, S, C], starts [B] int32)."""
+    if u is None:
+        u = torch.rand(x.shape[0], generator=generator, device=x.device)
+    max_start = torch.clamp(lengths - segment_size + 1, min=1)
+    starts = (u * max_start.to(u.dtype)).to(torch.int32)
+    return slice_segments(x, starts, segment_size), starts

@@ -1,21 +1,25 @@
-"""HiFi-GAN generator (the SVS vocoder).
+"""HiFi-GAN vocoder: generator and the multi-period/scale discriminators.
 
-Twin of Generator / ResBlock1 / ResBlock2 in
-music_generation_tpu/models/svs/hifigan.py (upsample 8/8/2/2, kernel
-16/16/4/4, ResBlock1 k=3/7/11 d=(1,3,5)). The discriminators belong to
-training and are not ported yet. Channels-first inside; the generator
-takes [B, T_frames, C] and returns [B, T_frames * prod(rates), 1].
+Twin of music_generation_tpu/models/svs/hifigan.py (upsample 8/8/2/2,
+kernel 16/16/4/4, ResBlock1 k=3/7/11 d=(1,3,5); MPD periods 2/3/5/7/11 plus
+one scale discriminator). Channels-first inside; the generator takes
+[B, T_frames, C] and returns [B, T_frames * prod(rates), 1], and the
+discriminators take audio [B, S, 1]. Their feature maps are channels-first
+([B, C, T] and, period discriminators, [B, C, T/p, p]) where flax's are
+channels-last.
 """
 
 from __future__ import annotations
 
 from typing import Sequence
 
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...core.layers import LRELU_SLOPE, Conv1d, ConvTranspose1d
+from ...core.layers import (LRELU_SLOPE, Conv1d, ConvTranspose1d,
+                            lecun_normal_)
 
 
 class ResBlock1(nn.Module):
@@ -87,3 +91,96 @@ class Generator(nn.Module):
             x = xs / len(blocks)
         x = self.conv_post(F.leaky_relu(x))
         return torch.tanh(x).transpose(1, 2)
+
+
+class DiscriminatorP(nn.Module):
+    """Period discriminator: reflect-pad audio [B, S, 1] at the end to a
+    multiple of the period, fold it to [B, 1, S/p, p] and run 2-D convs over
+    (time, period) with kernel (5, 1), stride (3, 1), padding (2, 0)."""
+
+    def __init__(self, period: int):
+        super().__init__()
+        self.period = period
+        chans = [1, 32, 128, 512, 1024]
+        self.conv = nn.ModuleList(
+            nn.Conv2d(chans[i], chans[i + 1], (5, 1), (3, 1), (2, 0))
+            for i in range(4))
+        self.conv.append(nn.Conv2d(1024, 1024, (5, 1), 1, (2, 0)))
+        self.conv_post = nn.Conv2d(1024, 1, (3, 1), 1, (1, 0))
+        for conv in [*self.conv, self.conv_post]:  # flax's nn.Conv init
+            lecun_normal_(conv.weight, conv.weight[0].numel())
+            nn.init.zeros_(conv.bias)
+
+    def forward(self, x: torch.Tensor):
+        b, s, _ = x.shape
+        p = self.period
+        x = x.transpose(1, 2)
+        n_pad = (p - s % p) % p
+        if n_pad:
+            x = F.pad(x, (0, n_pad), mode="reflect")
+        x = x.reshape(b, 1, -1, p)
+        fmap = []
+        for conv in self.conv:
+            x = F.leaky_relu(conv(x), LRELU_SLOPE)
+            fmap.append(x)
+        x = self.conv_post(x)
+        fmap.append(x)
+        return x.reshape(b, -1), fmap
+
+
+class DiscriminatorS(nn.Module):
+    """Scale discriminator: weight-normed, grouped 1-D convs on the raw
+    waveform."""
+
+    SPECS = ((16, 15, 1, 1), (64, 41, 4, 4), (256, 41, 4, 16),
+             (1024, 41, 4, 64), (1024, 41, 4, 256), (1024, 5, 1, 1))
+
+    def __init__(self):
+        super().__init__()
+        chans = [1] + [c for c, _, _, _ in self.SPECS]
+        self.conv = nn.ModuleList(
+            Conv1d(chans[i], ch, k, stride=st, groups=gr, weight_norm=True)
+            for i, (ch, k, st, gr) in enumerate(self.SPECS))
+        self.conv_post = Conv1d(1024, 1, 3, weight_norm=True)
+
+    def forward(self, x: torch.Tensor):
+        b = x.shape[0]
+        x = x.transpose(1, 2)
+        fmap = []
+        for conv in self.conv:
+            x = F.leaky_relu(conv(x), LRELU_SLOPE)
+            fmap.append(x)
+        x = self.conv_post(x)
+        fmap.append(x)
+        return x.reshape(b, -1), fmap
+
+
+class MultiPeriodDiscriminator(nn.Module):
+    """One scale discriminator (``disc_s``) and one period discriminator per
+    period (``disc_p2`` ...). Real and generated audio go through each
+    discriminator as one batch."""
+
+    def __init__(self, periods: Sequence[int] = (2, 3, 5, 7, 11)):
+        super().__init__()
+        self.disc_s = DiscriminatorS()
+        self.periods = tuple(periods)
+        for p in self.periods:
+            self.add_module(f"disc_p{p}", DiscriminatorP(p))
+
+    def discriminators(self) -> list:
+        return [self.disc_s] + [getattr(self, f"disc_p{p}")
+                                for p in self.periods]
+
+    def forward(self, y: torch.Tensor, y_hat: torch.Tensor):
+        """y, y_hat [B, S, 1] -> (real scores, generated scores, real
+        feature maps, generated feature maps), one entry per
+        discriminator."""
+        b = y.shape[0]
+        y_d_rs, y_d_gs, fmap_rs, fmap_gs = [], [], [], []
+        for d in self.discriminators():
+            out, fmap = d(torch.cat([y, y_hat]))
+            y_d_rs.append(out[:b])
+            y_d_gs.append(out[b:])
+            fmap_rs.append([f[:b] for f in fmap])
+            fmap_gs.append([f[b:] for f in fmap])
+        return y_d_rs, y_d_gs, fmap_rs, fmap_gs

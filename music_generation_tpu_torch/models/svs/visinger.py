@@ -1,15 +1,19 @@
-"""VISinger: VITS-derived singing-voice synthesizer, inference path.
+"""VISinger: VITS-derived singing-voice synthesizer.
 
-Twin of music_generation_tpu/models/svs/visinger.py for the served default
-(the AE variant, HiFi-GAN decoder, F0 from the F0 predictor). Layout is
-channels-last [B, T, C] with [B, T, 1] masks, as in the JAX package, so the
-two compare like with like.
+Twin of music_generation_tpu/models/svs/visinger.py for the default
+configuration (the AE variant, HiFi-GAN decoder, F0 from the F0
+predictor). Layout is channels-last [B, T, C] with [B, T, 1] masks, as in
+the JAX package, so the two compare like with like.
 
 Ported: SVSConfig, f0_to_coarse, TextEncoder, F0Predictor,
 MelPredictNetwork, FramePriorNetwork, TextPostNet, PosteriorEncoder,
-SpecDecoder and VISinger.infer / infer_hidden / decode_hidden. The training
-forward, the non-AE variant, NSF excitation, the iSTFT decoders and
-f0_mode="score" / f0_residual come with later parts of the port.
+SpecDecoder, VISinger.infer / infer_hidden / decode_hidden and the training
+forward (VISinger.forward, with dataset or MAS durations). Dropout is
+explicit: every forward takes ``deterministic`` (default True) and a
+``torch.Generator``, as the flax modules take ``deterministic`` and a
+dropout rng; the module's train/eval mode plays no part. The non-AE
+variant, NSF excitation, the iSTFT decoders and f0_mode="score" /
+f0_residual come with later parts of the port.
 """
 
 from __future__ import annotations
@@ -25,8 +29,10 @@ from torch import nn
 from ...core.attention import TransformerEncoder
 from ...core.flows import ResidualCouplingBlock
 from ...core.layers import Conv1d, conv_ntc
-from ...core.masking import expand_by_durations, feature_mask
+from ...core.masking import (expand_by_durations, feature_mask,
+                             rand_slice_segments)
 from ...core.wavenet import WaveNet
+from ...ops import mas_duration_targets
 from ..duration import DurationPredictor
 from .hifigan import Generator
 
@@ -59,15 +65,21 @@ class SVSConfig:
     n_heads: int = 2
     n_layers: int = 6
     kernel_size: int = 3
+    p_dropout: float = 0.1
     resblock: str = "1"
     resblock_kernel_sizes: Sequence[int] = (3, 7, 11)
     resblock_dilation_sizes: Sequence[Sequence[int]] = ((1, 3, 5),) * 3
     upsample_rates: Sequence[int] = (8, 8, 2, 2)
     upsample_initial_channel: int = 512
     upsample_kernel_sizes: Sequence[int] = (16, 16, 4, 4)
+    segment_size: int = 12288         # samples per training slice
     sampling_rate: int = 22050
     hop_length: int = 256
     frame_seconds: float = 0.0116     # duration->frames divisor
+
+    @property
+    def segment_frames(self) -> int:
+        return self.segment_size // self.hop_length
 
 
 def _embedding(n: int, dim: int) -> nn.Embedding:
@@ -85,13 +97,17 @@ class TextEncoder(nn.Module):
         self.emb_note_duration = nn.Linear(1, h)
         self.emb_shengdiao = _embedding(cfg.n_vocab_shengdiao, h)
         self.encoder = TransformerEncoder(h, cfg.filter_channels, cfg.n_heads,
-                                          cfg.n_layers, cfg.kernel_size)
+                                          cfg.n_layers, cfg.kernel_size,
+                                          cfg.p_dropout)
 
-    def forward(self, phones, note_ids, note_durations, shengdiao, mask):
+    def forward(self, phones, note_ids, note_durations, shengdiao, mask,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
         emb = (self.emb_phoneme(phones) + self.emb_note_pitch(note_ids)
                + self.emb_note_duration(note_durations[..., None])
                + self.emb_shengdiao(shengdiao)) * math.sqrt(self.hidden)
-        return self.encoder(emb * mask, mask) * mask
+        return self.encoder(emb * mask, mask, deterministic,
+                            generator) * mask
 
 
 class F0Predictor(nn.Module):
@@ -99,11 +115,12 @@ class F0Predictor(nn.Module):
         super().__init__()
         self.encoder = TransformerEncoder(
             cfg.hidden_channels, cfg.filter_channels, cfg.n_heads, n_layers,
-            cfg.kernel_size)
+            cfg.kernel_size, cfg.p_dropout)
         self.out = Conv1d(cfg.hidden_channels, 1, 1)
 
-    def forward(self, x, mask):
-        h = self.encoder(x * mask, mask)
+    def forward(self, x, mask, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
+        h = self.encoder(x * mask, mask, deterministic, generator)
         return (conv_ntc(self.out, h * mask) * mask)[..., 0]
 
 
@@ -114,12 +131,14 @@ class MelPredictNetwork(nn.Module):
         h = cfg.hidden_channels
         self.condition_proj = Conv1d(h, h, 1)
         self.encoder = TransformerEncoder(h, cfg.filter_channels, cfg.n_heads,
-                                          n_layers, cfg.kernel_size)
+                                          n_layers, cfg.kernel_size,
+                                          cfg.p_dropout)
         self.out = Conv1d(h, out_channels, 1)
 
-    def forward(self, x, condition, mask):
+    def forward(self, x, condition, mask, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
         x = (x + conv_ntc(self.condition_proj, condition)) * mask
-        x = self.encoder(x, mask)
+        x = self.encoder(x, mask, deterministic, generator)
         return conv_ntc(self.out, x * mask) * mask
 
 
@@ -155,12 +174,20 @@ class TextPostNet(nn.Module):
         self.frame_prior_net = FramePriorNetwork(n_mels, h, h)
         self.proj = Conv1d(h, 2 * cfg.inter_channels, 1)
 
-    def forward(self, x, mask):
+    def forward(self, x, mask, f0_score: Optional[torch.Tensor] = None,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
+        """``f0_score`` [B, T] int coarse F0 (training: the batch's ground
+        truth) drives the F0 embedding; None takes it from the predicted
+        log-F0."""
         t = x.shape[1]
         x_emb = (x + self.position_embeddings.weight[None, :t]) * mask
-        log_f0 = self.f0_predictor(x_emb, mask)
-        f0_emb = self.f0_emb(f0_to_coarse(torch.exp(log_f0) - 1.0)) * mask
-        mel_predict = self.mel_predict_net(x_emb, f0_emb, mask)
+        log_f0 = self.f0_predictor(x_emb, mask, deterministic, generator)
+        if f0_score is None:
+            f0_score = f0_to_coarse(torch.exp(log_f0) - 1.0)
+        f0_emb = self.f0_emb(f0_score) * mask
+        mel_predict = self.mel_predict_net(x_emb, f0_emb, mask, deterministic,
+                                           generator)
         x_hidden = self.frame_prior_net(mel_predict, f0_emb, mask)
         stats = conv_ntc(self.proj, x_hidden * mask) * mask
         return (stats[..., :self.inter], stats[..., self.inter:], log_f0,
@@ -206,13 +233,17 @@ class SpecDecoder(nn.Module):
 
 
 class VISinger(nn.Module):
-    """Score -> waveform (AE variant, HiFi-GAN decoder)."""
+    """AE variant with the HiFi-GAN decoder. Methods:
+      - infer(...): score -> waveform
+      - forward(...): the training forward (pieces for the GAN/VAE losses)
+    """
 
     def __init__(self, cfg: SVSConfig):
         super().__init__()
         c = self.cfg = cfg
         self.text_encoder = TextEncoder(c)
-        self.duration_predictor = DurationPredictor(c.hidden_channels, 256, 3)
+        self.duration_predictor = DurationPredictor(c.hidden_channels, 256, 3,
+                                                    0.5)
         self.text_post_net = TextPostNet(c)
         self.spec_encoder = PosteriorEncoder(c)
         self.spec_flow = ResidualCouplingBlock(
@@ -285,6 +316,22 @@ class VISinger(nn.Module):
         """Vocoder decoder only (pairs with infer_hidden)."""
         return self.decoder(hidden)
 
+    def _posterior(self, spec, y_lengths, noise=None, generator=None):
+        """Posterior sample and its flow image: (z, m_q, logs_q, y_mask,
+        z_p)."""
+        y_mask = feature_mask(y_lengths, spec.shape[1])
+        z, m_q, logs_q, _ = self.spec_encoder(spec, y_mask, noise=noise,
+                                              generator=generator)
+        return z, m_q, logs_q, y_mask, self.spec_flow(z, y_mask)
+
+    def _token_prior(self, h_text, x_mask, deterministic=True,
+                     generator=None):
+        """The token-level prior MAS aligns against: text_post_net on the
+        UN-regulated text encoding, F0 embedding from its own prediction."""
+        m_tok, logs_tok, _, _ = self.text_post_net(
+            h_text, x_mask, deterministic=deterministic, generator=generator)
+        return m_tok, logs_tok
+
     def mas_inputs(self, phones, x_lengths, note_ids, note_durations,
                    shengdiao, spec, y_lengths,
                    noise: Optional[torch.Tensor] = None,
@@ -292,14 +339,78 @@ class VISinger(nn.Module):
         """The tensors the training forward aligns with MAS
         (visinger.py:524-534 of the JAX package): the posterior sample
         through the flow z_p [B, F, inter], the token-level prior m, logs
-        [B, T, inter] (text_post_net on the UN-regulated text encoding) and
-        the masks. Feed them to ops.mas_duration_targets."""
+        [B, T, inter] and the masks. Feed them to ops.mas_duration_targets."""
         x_mask = feature_mask(x_lengths, phones.shape[1])
-        y_mask = feature_mask(y_lengths, spec.shape[1])
         h_text = self.text_encoder(phones, note_ids, note_durations,
                                    shengdiao, x_mask)
-        z, _, _, _ = self.spec_encoder(spec, y_mask, noise=noise,
-                                       generator=generator)
-        z_p = self.spec_flow(z, y_mask)
-        m_tok, logs_tok, _, _ = self.text_post_net(h_text, x_mask)
+        _, _, _, y_mask, z_p = self._posterior(spec, y_lengths, noise,
+                                               generator)
+        m_tok, logs_tok = self._token_prior(h_text, x_mask)
         return z_p, m_tok, logs_tok, x_mask, y_mask
+
+    def forward(self, phones, x_lengths, spec, y_lengths, note_ids,
+                note_durations, f0_score, phone_durations, shengdiao,
+                deterministic: bool = False, use_mas: bool = False, *,
+                noise: Optional[torch.Tensor] = None,
+                noise_rev: Optional[torch.Tensor] = None,
+                slice_u: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> dict:
+        """Training forward (the JAX package's VISinger.__call__).
+
+        Batch tensors as train.data.BATCH_KEYS gives them. With ``use_mas``
+        the durations that drive the length regulator and the duration loss
+        come from monotonic alignment search of the posterior against the
+        token-level prior (detached; CUDA tensors launch the MAS kernel),
+        else from ``phone_durations``. The three random draws, the
+        posterior noise [B, F, inter], the reverse-KL noise [B, F, inter]
+        and the slice-start uniforms [B], may be passed in; otherwise they,
+        and the dropout masks when ``deterministic`` is False, come from
+        ``generator``."""
+        c = self.cfg
+        x_mask = feature_mask(x_lengths, phones.shape[1])
+        h_text = self.text_encoder(phones, note_ids, note_durations,
+                                   shengdiao, x_mask, deterministic,
+                                   generator)
+        duration_fraction = self.duration_predictor(h_text, x_mask,
+                                                    deterministic, generator)
+        max_frames = spec.shape[1]
+        z, m_q, logs_q, y_mask, z_p = self._posterior(spec, y_lengths, noise,
+                                                      generator)
+        if use_mas:
+            with torch.no_grad():
+                m_tok, logs_tok = self._token_prior(h_text, x_mask,
+                                                    deterministic, generator)
+            phone_durations = mas_duration_targets(
+                z_p.detach(), m_tok, logs_tok, x_mask, y_mask)
+
+        h_lr, _ = expand_by_durations(h_text, phone_durations, max_frames)
+        m_p, logs_p, log_f0, mel_predict = self.text_post_net(
+            h_lr, y_mask, f0_score=f0_score, deterministic=deterministic,
+            generator=generator)
+
+        if noise_rev is None:
+            noise_rev = torch.randn(m_p.shape, generator=generator,
+                                    device=m_p.device, dtype=m_p.dtype)
+        z_hat = self.spec_flow(m_p + noise_rev * torch.exp(logs_p), y_mask,
+                               reverse=True)
+
+        spec_predict = self.spec_decoder(z, y_mask)
+        dec_input = conv_ntc(self.spec_proj, spec_predict)
+        z_slice, ids_slice = rand_slice_segments(
+            dec_input, y_lengths, c.segment_frames, u=slice_u,
+            generator=generator)
+        return {
+            "audio": self.decoder(z_slice),
+            "duration_fraction": duration_fraction,
+            # the durations that drove the length regulator (the batch's,
+            # or the in-step MAS targets): the duration loss's targets
+            "duration_targets": phone_durations,
+            "ids_slice": ids_slice,
+            "x_mask": x_mask, "y_mask": y_mask,
+            "z": z, "z_p": z_p, "m_p": m_p, "logs_p": logs_p,
+            "m_q": m_q, "logs_q": logs_q,
+            "log_f0": log_f0,
+            "mel_predict": mel_predict,
+            "spec_predict": spec_predict,
+            "z_hat": z_hat,
+        }

@@ -72,6 +72,33 @@ def test_slice_segments_matches():
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+def test_slice_segments_clamps_like_dynamic_slice():
+    """Starts past T - S are clamped so the slice fits, and negative ones
+    count from the end first, as in jax.lax.dynamic_slice_in_dim."""
+    x = np.random.RandomState(1).randn(5, T, C).astype(np.float32)
+    starts = np.array([-3, -30, -20, 20, 14], np.int32)
+    want = j_mask.slice_segments(jnp.asarray(x), jnp.asarray(starts), 9)
+    got = t_mask.slice_segments(t(x), t(starts), 9)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("channels,kernel,stride,groups",
+                         [(8, 41, 4, 4), (16, 5, 1, 16), (8, 15, 2, 2)])
+def test_grouped_strided_conv1d_matches(channels, kernel, stride, groups):
+    """Weight-normed grouped convs, as the scale discriminator has them."""
+    x, _ = _inputs(12, channels)
+    jm = j_layers.Conv1d(2 * channels, kernel, stride=stride, groups=groups,
+                         weight_norm=True)
+    params = init_params(jm, 13, x)
+    want = jax.jit(jm.apply)(params, x)
+    tm = _port(t_layers.Conv1d(channels, 2 * channels, kernel, stride=stride,
+                               groups=groups, weight_norm=True), params)
+    with torch.no_grad():
+        got = tm(t(x).transpose(1, 2)).transpose(1, 2)
+    assert got.shape == want.shape
+    assert rel_err(got, want) <= TOL
+
+
 @pytest.mark.parametrize("kernel,dilation,weight_norm",
                          [(1, 1, False), (3, 1, False), (5, 3, True),
                           (4, 2, True)])

@@ -137,8 +137,8 @@ def test_entry_points_refuse_missing_gpu():
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, and chip_smoke.py, leave jax, flax and the
-    JAX package unimported."""
+    """Every module of the port, the trainer and its CLI included, and
+    chip_smoke.py, leave jax, flax and the JAX package unimported."""
     code = (
         "import pkgutil, importlib, sys\n"
         "import music_generation_tpu_torch as p\n"
@@ -148,6 +148,8 @@ def test_port_imports_no_jax():
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
         "             ('jax', 'flax', 'music_generation_tpu'))\n"
         "assert not bad, bad\n"
+        "assert {p.__name__ + '.train.trainer',\n"
+        "        p.__name__ + '.train.__main__'} <= set(sys.modules)\n"
         "print('ok', len([k for k in sys.modules\n"
         "                 if k.startswith('music_generation_tpu_torch')]))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -67,7 +67,8 @@ def random_params(shape_tree, seed: int):
 
 def init_params(module, seed: int, *args, method=None, **kwargs):
     """Random params for a flax module, shapes from eval_shape."""
-    rngs = {"params": jax.random.PRNGKey(0), "noise": jax.random.PRNGKey(1)}
+    rngs = {name: jax.random.PRNGKey(i) for i, name in
+            enumerate(("params", "noise", "slice", "dropout"))}
     shapes = jax.eval_shape(
         lambda: module.init(rngs, *args, method=method, **kwargs))
     return random_params(shapes, seed)
