@@ -16,14 +16,25 @@ Phases, each fatal on failure (no exception is caught):
               keyword requests, cold + warm, then one keyword request
               through the full-width GPT-2 LM; then one warm request's
               stage timings and device busy share
-  5. gpu-cpu  one sentence through the full-width VISinger.infer on the card
+  5. variants serve.app's svs_v5_multispeaker (MelodyConfig() with SDP
+              durations, SDPDurationConfig()) and melody_v2 (three
+              Seq2SeqConfig() GRU models, beam 5) around the serve phase's
+              three SVS synthesizers: one cold and two warm text requests
+              each (a comma fragment, a line over 6 characters, both svs_v5
+              phrase substitutions), every sentence's notes and durations
+              checked; the SDP raw durations (same injected noise) and the
+              seq2seq teacher-forced log-probs on the card against CPU
+              twins of the same weights, get_melody identical up to the
+              CPU's first near tie; a warm request's stage timings and
+              launches
+  6. gpu-cpu  one sentence through the full-width VISinger.infer on the card
               and on the CPU: same weights, noise and pinned durations
-  6. lyrics   the full-width T5 and GPT-2 lyric LMs on the card against the
+  7. lyrics   the full-width T5 and GPT-2 lyric LMs on the card against the
               CPU (same weights): teacher-forced logits, greedy decodes up
               to the first near tie; encode and per-token decode times,
               LyricGeneratorT5.generate's wall, launches per token and the
               device busy share under torch.profiler
-  7. train    full-width GAN training steps (SVSConfig(), the full
+  8. train    full-width GAN training steps (SVSConfig(), the full
               MultiPeriodDiscriminator, B=8, 64 phones, 480 frames,
               --durations mas) through the port's trainer: losses finite,
               weights moved, the MAS kernel launched twice per step and the
@@ -33,8 +44,9 @@ Phases, each fatal on failure (no exception is caught):
               dropout off): every loss term and every parameter gradient;
               warm ms per step, samples/s, peak memory and a profile
 Launch counts are zeroed just before each main path and read just after
-it: phases 3-4 (the served slices) and phase 7 (training; its count is
-the one the kernels line reports). The lyric LMs launch no hand-written
+it: phases 3-4 (the served slices), phase 5 (the variants, which align
+nothing: no MAS launch, kernel or plain) and phase 8 (training; its count
+is the one the kernels line reports). The lyric LMs launch no hand-written
 kernel. All phases run in full float32: TF32 is off for matmuls and cuDNN
 convolutions. The last stdout line is the result JSON; it is printed only
 when every phase passed. Exits non-zero without a CUDA device.
@@ -319,13 +331,18 @@ def keyword_requests(port, clock) -> list:
 def phase_serve(device, t5_gen, gpt2_gen):
     import torch
     from music_generation_tpu_torch.config import ServiceConfig
-    from music_generation_tpu_torch.pipeline import (
-        build_default_song_synthesizer)
+    from music_generation_tpu_torch.pipeline.synthesis import (
+        build_svs_synthesizers)
     from music_generation_tpu_torch.serve.app import (MusicGenerationService,
                                                       make_http_server)
+    from music_generation_tpu_torch.serve.variants import (
+        VARIANTS, variant_song_synthesizer)
     t0 = time.time()
-    songs = build_default_song_synthesizer(tiny=False, n_speakers=3,
-                                           seed=SEED, device=device)
+    # built as serve.app's main() builds the default variant
+    songs = variant_song_synthesizer(
+        VARIANTS["svs_v6_multispeaker"],
+        build_svs_synthesizers(n_speakers=3, seed=SEED, device=device),
+        seed=SEED, device=device)
     log(f"serve phase: full-width pipeline built in {time.time() - t0:.1f} s")
     cfg = ServiceConfig(log_dir="logs")
     clock = StageClock(t5_gen)
@@ -369,9 +386,232 @@ def phase_serve(device, t5_gen, gpt2_gen):
         thread.join(timeout=30)
     breakdown = profile_request(songs, REQUESTS[0]["text"])
     log("serve profile: " + json.dumps(breakdown, ensure_ascii=False))
-    del songs
-    torch.cuda.empty_cache()
-    return latencies, keyword_rows, breakdown
+    return songs, latencies, keyword_rows, breakdown
+
+
+# a one-character fragment merges into the next sentence with its comma
+# (get_melody's comma branch); a line over 6 characters takes the breath
+# branch; svs_v5 rewrites both LYRIC_REPLACEMENTS phrases
+VARIANT_TEXT = "啊，我要飞向远方去飞翔。换你的梦，小小的天有大大的梦想"
+VARIANT_SEED = SEED + 3
+
+
+class MelodyRecorder:
+    """Records what a melody generator's ``method`` returned, per call, as
+    (lyric, notes, durations) per sentence."""
+
+    def __init__(self, generator, method: str):
+        self.sentences = []
+        inner = getattr(generator, method)
+
+        def recorded(*args, **kwargs):
+            out = inner(*args, **kwargs)
+            self.sentences += out if method == "generate_song" else [out]
+            return out
+        setattr(generator, method, recorded)
+
+
+def check_variant_melody(tag: str, sentences, sdp: bool) -> None:
+    """As many notes as durations per sentence; under SDP every duration
+    but the trailing 0.6 s rest inside handle_durations' band."""
+    from music_generation_tpu_torch.models.melody import handle_durations
+    for lyric, notes, durations in sentences:
+        if len(notes) != len(durations) or not notes:
+            raise AssertionError(f"{tag}: {lyric}: {len(notes)} notes, "
+                                 f"{len(durations)} durations")
+        if sdp and handle_durations(durations[:-1]) != durations[:-1]:
+            raise AssertionError(f"{tag}: {lyric}: durations {durations} "
+                                 "outside handle_durations' band")
+
+
+def same_weights(a, b) -> None:
+    import torch
+    sa, sb = a.state_dict(), b.state_dict()
+    if sa.keys() != sb.keys() or not all(
+            torch.equal(sa[k].cpu(), sb[k].cpu()) for k in sa):
+        raise AssertionError("card and CPU models hold different weights")
+
+
+def sdp_on_card_and_cpu(gen, cpu_gen, sentences) -> float:
+    """The SDP raw durations of the request's sentences on the card and
+    on the CPU, same weights and the same injected flow noise."""
+    import torch
+    from music_generation_tpu_torch.models.melody.api import SRC_LEN
+    same_weights(gen.duration_model, cpu_gen.duration_model)
+    src = torch.from_numpy(np.concatenate(
+        [cpu_gen._encode_src(s) for s in sentences]))
+    noise = torch.from_numpy(np.random.RandomState(VARIANT_SEED).randn(
+        len(sentences), SRC_LEN, 2).astype(np.float32))
+    cpu = cpu_gen.note_durations(src, noise=noise)
+    card = gen.note_durations(src.to(gen.device), noise=noise.to(gen.device))
+    rel = rel_l2(card, cpu)
+    log(f"variants phase: SDP raw durations {list(cpu.shape)} card vs CPU "
+        f"relative L2 {rel:.3e} (same injected noise)")
+    if not rel <= LOGIT_REL_LIMIT:
+        raise AssertionError(f"SDP durations card vs CPU: rel {rel}")
+    return rel
+
+
+class BeamRecorder:
+    """Within ``with``, records each seq2seq beam_decode's tokens and, per
+    step, whether the step's top beam + 1 combined scores held two within
+    NEAR_TIE of each other (the top-k choice or the final best beam could
+    part there)."""
+
+    def __enter__(self):
+        from music_generation_tpu_torch.models.melody import (seq2seq,
+                                                              seq2seq_api)
+        self.decodes = []
+        self._patched = [(seq2seq, "topk_lower_index",
+                          seq2seq.topk_lower_index),
+                         (seq2seq_api, "beam_decode",
+                          seq2seq_api.beam_decode)]
+        topk, decode = (p[2] for p in self._patched)
+
+        def recorded_topk(x, k):
+            top = x.topk(k + 1).values
+            self.decodes[-1]["ties"].append(
+                bool(((top[:-1] - top[1:]) < NEAR_TIE).any()))
+            return topk(x, k)
+
+        def recorded_decode(*args, **kwargs):
+            self.decodes.append({"ties": []})
+            seq, score = decode(*args, **kwargs)
+            self.decodes[-1]["tokens"] = seq.tolist()
+            return seq, score
+        seq2seq.topk_lower_index = recorded_topk
+        seq2seq_api.beam_decode = recorded_decode
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, fn in self._patched:
+            setattr(module, name, fn)
+
+
+def seq2seq_on_card_and_cpu(gen, cpu_gen, sentences) -> dict:
+    """The three seq2seq models' teacher-forced log-probs on the card and
+    the CPU (same weights), then get_melody of each sentence, identical up
+    to the CPU decode's first near tie."""
+    import random
+
+    import torch
+    from music_generation_tpu_torch.models.melody.seq2seq import START_ID
+    rels = {}
+    for name, lang in (("lyric2note", gen.lyric_lang),
+                       ("lyric2duration", gen.lyric_lang),
+                       ("note2duration", gen.note_lang)):
+        card_model, cpu_model = getattr(gen, name), getattr(cpu_gen, name)
+        same_weights(card_model, cpu_model)
+        rng = np.random.RandomState(VARIANT_SEED)
+        src = torch.from_numpy(rng.randint(
+            4, lang.n_items, (len(sentences), 16)))
+        src[1:, 9:] = 0     # right-padded sources beside a full one
+        tgt = torch.from_numpy(rng.randint(
+            4, card_model.cfg.de_vocab, (len(sentences), 16)))
+        tgt[:, 0] = START_ID
+        with torch.no_grad():
+            cpu = cpu_model(src, tgt)
+            card = card_model(src.to(gen.device), tgt.to(gen.device))
+        rels[name] = rel_l2(card, cpu)
+    gen._rand = random.Random(VARIANT_SEED)
+    cpu_gen._rand = random.Random(VARIANT_SEED)
+    parted = None
+    with BeamRecorder() as cpu_rec:
+        cpu_out = [cpu_gen.get_melody(s) for s in sentences]
+    with BeamRecorder() as card_rec:
+        card_out = [gen.get_melody(s) for s in sentences]
+    for i, (c, g) in enumerate(zip(cpu_rec.decodes, card_rec.decodes)):
+        if c["tokens"] == g["tokens"]:
+            continue
+        first = next(p for p, (a, b) in
+                     enumerate(zip(c["tokens"], g["tokens"])) if a != b)
+        if not (any(c["ties"][: first + 1]) or c["ties"][-1]):
+            raise AssertionError(f"seq2seq decode {i} parts at step {first} "
+                                 "with no near tie on the CPU")
+        parted = {"decode": i, "step": first}
+        break
+    if parted is None and card_out != cpu_out:
+        raise AssertionError(f"get_melody card {card_out} != CPU {cpu_out}")
+    log(f"variants phase: seq2seq teacher-forced log-probs card vs CPU "
+        f"relative L2 {json.dumps(rels)}; get_melody of "
+        f"{len(sentences)} sentences ({len(cpu_rec.decodes)} beam decodes) "
+        f"identical" + ("" if parted is None else
+                        f" up to the CPU's near tie at {parted}"))
+    if not all(r <= LOGIT_REL_LIMIT for r in rels.values()):
+        raise AssertionError(f"seq2seq card vs CPU: {rels}")
+    return {"logprobs_rel_l2": rels, "parted_at_near_tie": parted}
+
+
+def serve_variant(name: str, songs, recorder, canned_dir=None) -> dict:
+    """One cold and two warm VARIANT_TEXT requests through the port's HTTP
+    service, each checked; then one warm request's stage timings and
+    launches."""
+    from music_generation_tpu_torch.config import ServiceConfig
+    from music_generation_tpu_torch.serve.app import (MusicGenerationService,
+                                                      make_http_server)
+    service = MusicGenerationService(songs, None, ServiceConfig(
+        log_dir="logs"), canned_dir=canned_dir)
+    server = make_http_server(service, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    row = {"variant": name, "chars": len(VARIANT_TEXT)}
+    try:
+        for kind in ("cold", "warm", "warm_2"):
+            recorder.sentences.clear()
+            t0 = time.time()
+            out = _post(server.server_address[1], {"text": VARIANT_TEXT})
+            row[f"{kind}_s"] = time.time() - t0
+            row["audio_s"] = check_song(f"{name} request", out)
+            check_variant_melody(name, recorder.sentences,
+                                 sdp=name.startswith("svs_v5"))
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.close()
+        thread.join(timeout=30)
+    row["sentences"] = [s[0] for s in recorder.sentences]
+    row["profile"] = profile_request(songs, VARIANT_TEXT)
+    log(f"variants phase: {name}: " + json.dumps(row, ensure_ascii=False))
+    return row
+
+
+def phase_variants(device, synthesizers) -> dict:
+    """serve.app --variant svs_v5_multispeaker and --variant melody_v2 at
+    full width (MelodyConfig() with SDPDurationConfig(); three
+    Seq2SeqConfig() models), around the serve phase's three SVS
+    synthesizers, each held against a CPU twin of its weights."""
+    from music_generation_tpu_torch.pipeline.synthesis import (
+        LYRIC_REPLACEMENTS, split_sentences)
+    from music_generation_tpu_torch.serve.variants import (
+        VARIANTS, build_melody_generator, variant_song_synthesizer)
+    rows = {}
+    for name in ("svs_v5_multispeaker", "melody_v2"):
+        spec = VARIANTS[name]
+        t0 = time.time()
+        # built as serve.app's main() builds the variant
+        songs = variant_song_synthesizer(spec, synthesizers, seed=SEED,
+                                         device=device)
+        melody = songs.melody
+        cpu_melody = build_melody_generator(spec, seed=SEED, device="cpu")
+        log(f"variants phase: {name} melody generator built on the card and "
+            f"the CPU in {time.time() - t0:.1f} s")
+        sentences = split_sentences(VARIANT_TEXT,
+                                    replacements=songs.lyric_replacements)
+        if spec.melody == "sdp":
+            if not any(new in s for s in sentences
+                       for _, new in LYRIC_REPLACEMENTS):
+                raise AssertionError(f"no replacement in {sentences}")
+            compared = {"sdp_rel_l2": sdp_on_card_and_cpu(
+                melody, cpu_melody, sentences)}
+            recorder = MelodyRecorder(melody, "generate_song")
+        else:
+            compared = seq2seq_on_card_and_cpu(melody.gen, cpu_melody.gen,
+                                               sentences)
+            recorder = MelodyRecorder(melody, "generate")
+        del cpu_melody
+        rows[name] = serve_variant(name, songs, recorder,
+                                   canned_dir=spec.canned_dir) | compared
+    return rows
 
 
 def phase_gpu_vs_cpu(device):
@@ -828,8 +1068,9 @@ def phase_train(device) -> dict:
 
 
 def phases_before_train(device) -> dict:
-    """Phases 2-6: the kernel's record, then the served slices (their MAS
-    launches counted), the card against the CPU and the lyric LMs."""
+    """Phases 2-7: the kernel's record, then the served slices (their MAS
+    launches counted), the server variants, the card against the CPU and
+    the lyric LMs."""
     import torch
     from music_generation_tpu_torch.ops import maximum_path
     record = phase_kernel(device)
@@ -846,12 +1087,23 @@ def phases_before_train(device) -> dict:
     maximum_path.kernel_launches = 0
     maximum_path.plain_calls = 0
     phase_align(device)
-    latencies, keyword_rows, breakdown = phase_serve(device, t5_gen,
-                                                     gpt2_gen)
+    songs, latencies, keyword_rows, breakdown = phase_serve(device, t5_gen,
+                                                            gpt2_gen)
     if maximum_path.kernel_launches < 1 or maximum_path.plain_calls:
         raise AssertionError(f"main path launched the MAS kernel "
                              f"{maximum_path.kernel_launches} times (plain "
                              f"calls {maximum_path.plain_calls})")
+
+    # serving aligns nothing: the variants' path runs no hand-written
+    # kernel, and neither MAS version
+    maximum_path.kernel_launches = 0
+    variants = phase_variants(device, songs.synthesizers)
+    if maximum_path.kernel_launches or maximum_path.plain_calls:
+        raise AssertionError(f"the variants ran MAS: kernel "
+                             f"{maximum_path.kernel_launches}, plain "
+                             f"{maximum_path.plain_calls}")
+    del songs
+    torch.cuda.empty_cache()
 
     rel = phase_gpu_vs_cpu(device)
     lyrics = phase_lyrics(device, t5_gen, gpt2_gen)
@@ -859,6 +1111,7 @@ def phases_before_train(device) -> dict:
     torch.cuda.empty_cache()
     return {"record": record, "serve_latency_s": latencies,
             "serve_keyword": keyword_rows, "serve_profile": breakdown,
+            "variants": variants,
             "gpu_vs_cpu_rel": rel, "lyrics": lyrics}
 
 

@@ -8,6 +8,9 @@ imports no JAX. Layouts:
   - transposed conv  [K, I, O] -> flipped along K, then [I, O, K]
   - dense            [in, out] -> [out, in]
   - weight norm: (kernel, g) kept as is (the port stores the same pair)
+  - flax GRU/LSTM cells: per-gate dense kernels stacked into torch's
+    weight_ih / weight_hh (gates r|z|n, i|f|g|o), the biases flax lacks
+    set to zero
 Every leaf must be consumed and every parameter of the port module filled,
 with matching shapes; anything else raises.
 """
@@ -24,8 +27,10 @@ from torch import nn
 from ..core.layers import Conv1d, ConvTranspose1d
 from ..models.lyrics.gpt2 import GPT2, GPT2Config
 from ..models.lyrics.t5 import T5, T5Config
+from ..models.melody.seq2seq import Seq2SeqConfig, Seq2SeqModel
 from ..models.melody.transformer import (MelodyConfig, MelodyTransformer,
-                                         MSEDurationModel)
+                                         MSEDurationModel, SDPDurationConfig,
+                                         SDPDurationModel)
 from ..models.svs.hifigan import MultiPeriodDiscriminator
 from ..models.svs.visinger import SVSConfig, VISinger
 
@@ -164,3 +169,70 @@ def gpt2_state_dict_from_flax(params: dict, cfg: GPT2Config) -> dict:
     with torch.device("meta"):
         model = GPT2(cfg)
     return state_dict_from_flax(params, model, _suffixed_rename)
+
+
+def sdp_state_dict_from_flax(params: dict, cfg: SDPDurationConfig) -> dict:
+    """state_dict for the port's SDPDurationModel(cfg). The tree flax
+    builds with init(method=infer_duration) holds exactly what inference
+    runs; a tree from the training __call__ also holds the duration
+    predictor's flow 0 and posterior (dp/flow_0, dp/post_*), which only
+    the NLL direction uses: those subtrees, and only those, are dropped."""
+    params = dict(params.get("params", params))
+    params["dp"] = {k: v for k, v in params["dp"].items()
+                    if k != "flow_0" and not k.startswith("post_")}
+    with torch.device("meta"):
+        model = SDPDurationModel(cfg)
+    return state_dict_from_flax(params, model)
+
+
+_GRU_GATES = (("ir", "iz", "in"), ("hr", "hz", "hn"))
+_LSTM_GATES = (("ii", "if", "ig", "io"), ("hi", "hf", "hg", "ho"))
+
+
+def _rnn_cell(leaves: dict, prefix: str, use_lstm: bool) -> dict:
+    """torch (weight_ih, weight_hh, bias_ih, bias_hh) of one flax cell,
+    popping its leaves from ``leaves`` ('prefix/gate/kernel|bias'). A gate
+    flax keeps unbiased (the GRU's hr and hz, the LSTM's input gates) gets
+    a zero bias."""
+    out = {}
+    for side, gates in zip(("ih", "hh"),
+                           _LSTM_GATES if use_lstm else _GRU_GATES):
+        kernels = [leaves.pop(f"{prefix}/{g}/kernel") for g in gates]
+        out[f"weight_{side}"] = np.concatenate([k.T for k in kernels])
+        out[f"bias_{side}"] = np.concatenate([
+            leaves.pop(f"{prefix}/{g}/bias", np.zeros(k.shape[1], np.float32))
+            for g, k in zip(gates, kernels)])
+    return out
+
+
+def seq2seq_state_dict_from_flax(params: dict, cfg: Seq2SeqConfig) -> dict:
+    """state_dict for the port's Seq2SeqModel(cfg) from one JAX
+    Seq2SeqModel tree (Seq2SeqMelodyGenerator holds three: one call per
+    model)."""
+    leaves = {"/".join(k): v for k, v in
+              _flatten(params.get("params", params))}
+    named = {"encoder.embed.weight": leaves.pop("encoder/embed/embedding"),
+             "decoder.embed.weight": leaves.pop("decoder/embed/embedding")}
+    for lin in ("linear1", "linear2"):
+        named[f"decoder.{lin}.weight"] = leaves.pop(
+            f"decoder/{lin}/kernel").T
+        named[f"decoder.{lin}.bias"] = leaves.pop(f"decoder/{lin}/bias")
+    for i in range(cfg.num_layers):
+        for tag, suffix in (("f", ""), ("b", "_reverse")):
+            cell = _rnn_cell(leaves, f"encoder/cell_{tag}{i}", cfg.use_lstm)
+            named.update({f"encoder.rnn.{k}_l{i}{suffix}": v
+                          for k, v in cell.items()})
+        cell = _rnn_cell(leaves, f"decoder/cell_{i}", cfg.use_lstm)
+        named.update({f"decoder.cell.{i}.{k}": v for k, v in cell.items()})
+    with torch.device("meta"):
+        targets = dict(Seq2SeqModel(cfg).named_parameters())
+    missing = sorted(set(targets) - set(named))
+    if leaves or missing or set(named) - set(targets):
+        raise ValueError(f"unconsumed leaves: {sorted(leaves)}; unfilled "
+                         f"parameters: {missing}; unknown: "
+                         f"{sorted(set(named) - set(targets))}")
+    for name, value in named.items():
+        if tuple(value.shape) != tuple(targets[name].shape):
+            raise ValueError(f"{name}: shape {value.shape} != "
+                             f"{tuple(targets[name].shape)}")
+    return {k: torch.from_numpy(np.array(v)) for k, v in named.items()}

@@ -151,3 +151,34 @@ class FFN(nn.Module):
         h = dropout(h, self.dropout_rate, deterministic, generator)
         h = self.conv_2(h * m)
         return (h * m).transpose(1, 2)
+
+
+class DDSConv(nn.Module):
+    """Dilated depth-separable conv stack on [B, T, C] (the inference
+    direction of the JAX package's DDSConv: dropout is not applied).
+    Layer i: depthwise conv with dilation kernel_size**i, LayerNorm, GELU,
+    pointwise conv, LayerNorm, GELU, residual. GELU is the tanh
+    approximation, jax.nn.gelu's default."""
+
+    def __init__(self, channels: int, kernel_size: int, n_layers: int):
+        super().__init__()
+        self.sep = nn.ModuleList(
+            Conv1d(channels, channels, kernel_size, dilation=kernel_size ** i,
+                   groups=channels) for i in range(n_layers))
+        self.norm1 = nn.ModuleList(LayerNorm1d(channels)
+                                   for _ in range(n_layers))
+        self.pw = nn.ModuleList(Conv1d(channels, channels, 1)
+                                for _ in range(n_layers))
+        self.norm2 = nn.ModuleList(LayerNorm1d(channels)
+                                   for _ in range(n_layers))
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor,
+                g: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if g is not None:
+            x = x + g
+        for sep, norm1, pw, norm2 in zip(self.sep, self.norm1, self.pw,
+                                         self.norm2):
+            y = F.gelu(norm1(conv_ntc(sep, x * mask)), approximate="tanh")
+            y = F.gelu(norm2(conv_ntc(pw, y)), approximate="tanh")
+            x = x + y
+        return x * mask

@@ -1,8 +1,10 @@
-"""Host-level melody generation API, MSE duration variant.
+"""Host-level melody generation API, MSE and SDP duration variants.
 
 Twin of MelodyGenerator in music_generation_tpu/models/melody/api.py
 (generate_song with on-device previous-sentence conditioning and note
-repair, _format_durations, MAX_PHONE_SECONDS). The reference's host logic:
+repair, _format_durations, MAX_PHONE_SECONDS, handle_durations). The
+SDP variant draws its flow noise from a torch.Generator seeded with
+seed + 1 (the JAX twin's noise key). The reference's host logic:
 cross-sentence conditioning pads prev/src to 60 tokens, notes are fixed to
 len(lyric), a trailing rest/0.6 s/AP is appended. The beam decode runs a
 static number of steps (the JAX package's decode bucket) with finished
@@ -19,7 +21,7 @@ import torch
 from ...device import resolve_device
 from .beam import beam_search
 from .transformer import (MelodyConfig, MelodyTransformer, MSEDurationModel,
-                          causal_mask)
+                          SDPDurationConfig, SDPDurationModel, causal_mask)
 from .vocab import BOS_ID, EOS_ID, EOS_TOKEN, MelodyDictionary
 
 SRC_LEN = 60          # reference rpad length (inference.py:100-101)
@@ -46,6 +48,12 @@ def handle_notes(notes: list[str], target_len: int) -> list[str]:
     while len(out) < target_len:
         out.append(out[-1])
     return out[:target_len]
+
+
+def handle_durations(durations: list[float]) -> list[float]:
+    """SDP-variant clamp (inference.py:129-140 of the reference)."""
+    return [0.3201 if d <= 0.15 else (0.4305 if d >= 2 else d)
+            for d in durations]
 
 
 def repair(tokens: torch.Tensor, length: int) -> torch.Tensor:
@@ -84,17 +92,30 @@ class MelodyGenerator:
 
     def __init__(self, lyric_dictionary: MelodyDictionary,
                  note_dictionary: MelodyDictionary,
-                 cfg: Optional[MelodyConfig] = None, seed: int = 0,
-                 device=None):
+                 cfg: Optional[MelodyConfig] = None,
+                 duration_variant: str = "mse",
+                 sdp_cfg: Optional[SDPDurationConfig] = None,
+                 seed: int = 0, device=None):
         self.device = resolve_device(device)
         self.lyric_dict = lyric_dictionary
         self.note_dict = note_dictionary
         self.cfg = cfg or MelodyConfig(src_vocab=lyric_dictionary.size,
                                        tgt_vocab=note_dictionary.size)
+        self.duration_variant = duration_variant
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
             self.note_model = MelodyTransformer(self.cfg)
-            self.duration_model = MSEDurationModel(self.cfg)
+            if duration_variant == "mse":
+                self.duration_model = MSEDurationModel(self.cfg)
+            elif duration_variant == "sdp":
+                self.sdp_cfg = sdp_cfg or SDPDurationConfig(
+                    src_vocab=lyric_dictionary.size)
+                self.duration_model = SDPDurationModel(self.sdp_cfg)
+                # the SDP's flow noise (the JAX twin's _noise_key)
+                self.generator = torch.Generator(self.device).manual_seed(
+                    seed + 1)
+            else:
+                raise ValueError(duration_variant)
         self.note_model.to(self.device).eval()
         self.duration_model.to(self.device).eval()
 
@@ -124,11 +145,19 @@ class MelodyGenerator:
         return seq
 
     @torch.no_grad()
-    def note_durations(self, src: torch.Tensor) -> torch.Tensor:
-        """Raw MSE durations (centi-seconds, pre-round) [S, SRC_LEN]."""
+    def note_durations(self, src: torch.Tensor,
+                       noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Raw durations (centi-seconds, pre-round) [S, SRC_LEN]. The SDP
+        variant's ``noise`` [S, SRC_LEN, 2] replaces its draw from the
+        generator."""
         mask = src != 0
-        out = self.duration_model(src, mask[:, None, None, :].to(torch.int32))
-        return (torch.exp(out) - 1.0) * mask
+        if self.duration_variant == "mse":
+            out = self.duration_model(src,
+                                      mask[:, None, None, :].to(torch.int32))
+            return (torch.exp(out) - 1.0) * mask
+        w = self.duration_model.infer_duration(src, noise=noise,
+                                               generator=self.generator)
+        return w * mask
 
     @torch.no_grad()
     def generate_song(self, sentences: list[str]):
@@ -170,6 +199,10 @@ class MelodyGenerator:
         return self.generate_song([lyric])[0]
 
     def _format_durations(self, dur_raw, src_row, n_chars: int) -> list[float]:
+        if self.duration_variant == "sdp":
+            durations = [round(float(d * 0.01), 4) for d in dur_raw.tolist()]
+            durations = handle_durations(durations[1: n_chars + 1])
+            return (durations + [0.3201] * n_chars)[: n_chars]
         vals = np.round(dur_raw).tolist()
         n_valid = int((src_row != 0).sum())
         vals = vals[1: n_valid - 1]

@@ -1,21 +1,26 @@
-"""Melody transformer (lyric -> note enc-dec) and the MSE duration model.
+"""Melody transformer (lyric -> note enc-dec) and the duration models.
 
-Twin of MelodyTransformer (prev_mode="reference") and MSEDurationModel in
+Twin of MelodyTransformer (prev_mode="reference"), MSEDurationModel and
+SDPDurationModel (inference) in
 music_generation_tpu/models/melody/transformer.py: the "annotated
 transformer" with pre-norm sublayers, a final LayerNorm, sinusoidal
 positions and emb * sqrt(d), plus the cross-sentence ``dotattention``
-memory. LayerNorms use flax's default eps, 1e-6.
+memory; the SDP variant's post-norm encoder with learned positions feeding
+the stochastic duration predictor. LayerNorms use flax's default eps, 1e-6.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..duration import StochasticDurationPredictor
 
 MASK_VALUE = -1e9
 LN_EPS = 1e-6
@@ -217,3 +222,71 @@ class MSEDurationModel(nn.Module):
         x = self.encoder(self.src_embed(src), src_mask)
         x = F.leaky_relu(self.decoder(x), 0.2)
         return self.generator(x)[..., 0]  # [B, T] log-durations
+
+
+@dataclasses.dataclass(frozen=True)
+class SDPDurationConfig:
+    src_vocab: int = 4000
+    hidden_dim: int = 256
+    n_layers: int = 6
+    n_heads: int = 8
+    pf_dim: int = 512
+    max_len: int = 100
+
+
+class PostNormEncoder(nn.Module):
+    """Post-norm encoder with learned positional embeddings
+    (transformer_melody/modules.py:742-790 of the reference)."""
+
+    def __init__(self, cfg: SDPDurationConfig):
+        super().__init__()
+        d = cfg.hidden_dim
+        self.scale = math.sqrt(d)
+        self.tok = nn.Embedding(cfg.src_vocab, d)
+        self.pos = nn.Embedding(cfg.max_len, d)
+        for emb in (self.tok, self.pos):
+            nn.init.normal_(emb.weight, std=d ** -0.5)
+        self.attn = nn.ModuleList(MHA(d, cfg.n_heads)
+                                  for _ in range(cfg.n_layers))
+        self.norm1 = nn.ModuleList(nn.LayerNorm(d, eps=LN_EPS)
+                                   for _ in range(cfg.n_layers))
+        self.ff = nn.ModuleList(FeedForward(d, cfg.pf_dim)
+                                for _ in range(cfg.n_layers))
+        self.norm2 = nn.ModuleList(nn.LayerNorm(d, eps=LN_EPS)
+                                   for _ in range(cfg.n_layers))
+
+    def forward(self, src, src_mask):
+        pos = torch.arange(src.shape[1], device=src.device)[None, :]
+        x = self.tok(src) * self.scale + self.pos(pos)
+        for attn, norm1, ff, norm2 in zip(self.attn, self.norm1, self.ff,
+                                          self.norm2):
+            x = norm1(x + attn(x, x, x, src_mask))
+            x = norm2(x + ff(x))
+        return x
+
+
+class SDPDurationModel(nn.Module):
+    """Lyric2Duration, inference: the post-norm encoder and the stochastic
+    duration predictor's reverse direction."""
+
+    def __init__(self, cfg: SDPDurationConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.encoder = PostNormEncoder(cfg)
+        self.dp = StochasticDurationPredictor(cfg.hidden_dim, 3)
+
+    def infer_duration(self, src: torch.Tensor, noise_scale: float = 1.0,
+                       noise: Optional[torch.Tensor] = None,
+                       generator: Optional[torch.Generator] = None
+                       ) -> torch.Tensor:
+        """src: [B, T] ids (0 = pad). Returns durations w [B, T]
+        (exp(logw)). ``noise`` [B, T, 2] replaces the standard normal draw
+        from ``generator``; it is scaled by ``noise_scale`` either way."""
+        mask = src != 0
+        h = self.encoder(src, mask[:, None, None, :].to(torch.int32))
+        fmask = mask[..., None].to(h.dtype)
+        if noise is None:
+            noise = torch.randn((*src.shape, 2), generator=generator,
+                                device=src.device, dtype=h.dtype)
+        logw = self.dp(h, fmask, noise * noise_scale)
+        return torch.exp(logw) * mask.to(h.dtype)

@@ -34,11 +34,22 @@ FRAME_BUCKETS = (128, 256, 512, 768, 1024, 1536, 1984)
 MIN_SENTENCE_LEN = 2
 
 
-def split_sentences(lyrics: str, min_len: int = MIN_SENTENCE_LEN) -> list[str]:
+# the svs_v5 pipeline string-replaces two phrases in every lyric fragment
+# before merging (pipline_inference_svs_v5.py:191 of the reference; the v6
+# pipeline comments it out again) -- a variant-gated option
+LYRIC_REPLACEMENTS = (("飞向远方去飞翔", "永远陪在你身旁"),
+                      ("换你的梦", "呵护着你"))
+
+
+def split_sentences(lyrics: str, min_len: int = MIN_SENTENCE_LEN,
+                    replacements: tuple = ()) -> list[str]:
     """Punctuation split + merge of fragments shorter than min_len
-    (parity: syn_music :190-204 of the reference)."""
+    (parity: syn_music :190-204 of the reference); ``replacements``
+    applies per-fragment phrase substitutions first (svs_v5's list)."""
     merged, carry = [], ""
     for p in SENTENCE_SPLIT_RE.split(lyrics):
+        for old, new in replacements:
+            p = p.replace(old, new)
         if len(p) < min_len:
             carry += p + ","
         else:
@@ -189,10 +200,15 @@ class SongResult:
 class SongSynthesizer:
     """Full lyrics -> song (multi-speaker via per-speaker SVS models)."""
 
-    def __init__(self, melody: MelodyGenerator,
-                 synthesizers: dict[int, SVSSynthesizer]):
+    def __init__(self, melody, synthesizers: dict[int, SVSSynthesizer],
+                 lyric_replacements: tuple = ()):
+        # a MelodyGenerator (whole-song generate_song) or any generator
+        # with generate(sentence, index, previous_notes)
         self.melody = melody
         self.synthesizers = synthesizers  # singer_id -> SVSSynthesizer
+        # svs_v5's phrase substitutions (LYRIC_REPLACEMENTS when the
+        # variant enables them)
+        self.lyric_replacements = tuple(lyric_replacements)
         # melody decode carries previous-sentence state; serialize it so
         # concurrent requests (serve/batching.py) stay race-free while the
         # SVS stage batches across requests
@@ -204,10 +220,19 @@ class SongSynthesizer:
         SVS call — the serving tier passes a cross-request coalescer
         (serve/batching.SVSBatcher.fn_for)."""
         svs = self.synthesizers.get(singer_id, self.synthesizers[0])
-        sentences = split_sentences(lyrics)
+        sentences = split_sentences(lyrics,
+                                    replacements=self.lyric_replacements)
         t_start = time.time()
         with self._melody_lock:
-            outs = self.melody.generate_song(sentences)
+            if hasattr(self.melody, "generate_song"):
+                outs = self.melody.generate_song(sentences)
+            else:  # sentence by sentence, each seeing the previous notes
+                outs, previous = [], []
+                for k, sentence in enumerate(sentences):
+                    out = self.melody.generate(
+                        sentence, index=k, previous_notes=previous or None)
+                    previous = out[1]
+                    outs.append(out)
         all_notes, scores = [], []
         for out_lyric, note_tokens, durations in outs:
             note_names = [midi_to_note(int(m)) if m != "rest" else "rest"
@@ -244,10 +269,13 @@ def tiny_configs(src_vocab: int) -> tuple[MelodyConfig, SVSConfig]:
                       upsample_kernel_sizes=(16, 16, 4, 4)))
 
 
-def build_melody_generator(tiny: bool = False, seed: int = 0, device=None
+def build_melody_generator(tiny: bool = False, seed: int = 0, device=None,
+                           duration_variant: str = "mse"
                            ) -> MelodyGenerator:
     """Random-initialised melody generator, full width or tiny, on
-    ``device`` (default cuda)."""
+    ``device`` (default cuda), with MSE or SDP durations (the SDP model
+    keeps its full SDPDurationConfig even when tiny, as in the JAX
+    package)."""
     # the lyric dictionary covers the full monosyllable charset, sorted as
     # in the JAX package so checkpoints transfer
     lyric_dict = lyric_dictionary_from_chars(
@@ -255,7 +283,8 @@ def build_melody_generator(tiny: bool = False, seed: int = 0, device=None
     mcfg = (tiny_configs(lyric_dict.size)[0] if tiny
             else MelodyConfig(src_vocab=lyric_dict.size, tgt_vocab=37))
     return MelodyGenerator(lyric_dict, note_dictionary(), cfg=mcfg,
-                           seed=seed, device=device)
+                           duration_variant=duration_variant, seed=seed,
+                           device=device)
 
 
 def build_default_song_synthesizer(tiny: bool = False, n_speakers: int = 3,
@@ -264,10 +293,21 @@ def build_default_song_synthesizer(tiny: bool = False, n_speakers: int = 3,
     """Random-initialised full pipeline (no trained weights ship with the
     repository). Runs on ``device`` (default cuda)."""
     device = resolve_device(device)
-    melody = build_melody_generator(tiny, seed, device)
-    scfg = tiny_configs(melody.cfg.src_vocab)[1] if tiny else SVSConfig()
+    return SongSynthesizer(build_melody_generator(tiny, seed, device),
+                           build_svs_synthesizers(tiny, n_speakers, seed,
+                                                  device))
+
+
+def build_svs_synthesizers(tiny: bool = False, n_speakers: int = 3,
+                           seed: int = 0, device=None
+                           ) -> dict[int, SVSSynthesizer]:
+    """One random-initialised SVSSynthesizer per speaker (speaker i from
+    ``seed + i``), sharing one score frontend, on ``device`` (default
+    cuda)."""
+    device = resolve_device(device)
+    # the tiny SVS config does not depend on the vocabulary
+    scfg = tiny_configs(0)[1] if tiny else SVSConfig()
     frontend = ScoreFrontend()
-    synths = {i: SVSSynthesizer(scfg, seed=seed + i, frontend=frontend,
-                                device=device)
-              for i in range(n_speakers)}
-    return SongSynthesizer(melody, synths)
+    return {i: SVSSynthesizer(scfg, seed=seed + i, frontend=frontend,
+                              device=device)
+            for i in range(n_speakers)}

@@ -6,7 +6,8 @@ wire contract as the reference controllers:
     body (json or form): text | keyword, singer_id (0=default, 1, 2)
     -> {code: 200, message, data: {lyrics, audio: <b64 wav>}}
     a keyword (or theme) request first generates its lyrics with the lyric
-    LM (--lyric-model t5 | gpt2)
+    LM (--lyric-model t5 | gpt2); under melody_v2 two keywords answer
+    with canned demo songs when ./resources holds them
     errors: 201 missing input, 202 length guard (1..500) on the given or
     generated lyrics, 203 synth error
   POST /profile?seconds=N&dir=NAME -> a torch.profiler trace of live
@@ -14,7 +15,10 @@ wire contract as the reference controllers:
   GET /healthz -> {ok: true}
 
 Run: python -m music_generation_tpu_torch.serve.app --port 5005
+     [--variant svs_v6_multispeaker|svs_v5|svs_v5_multispeaker|melody_v2]
      [--lyric-model t5|gpt2] [--tiny] [--device cpu]
+(--variant v1 and v1_model exit at startup: their shell backend and
+TeleMelody melody are not ported yet.)
 """
 
 from __future__ import annotations
@@ -33,6 +37,8 @@ from typing import Optional
 from urllib.parse import parse_qs, urlparse
 
 from ..config import ServiceConfig
+from .variants import (VARIANTS, canned_response, check_ported,
+                       variant_song_synthesizer)
 
 
 def make_logger(cfg: ServiceConfig) -> logging.Logger:
@@ -55,9 +61,11 @@ class MusicGenerationService:
 
     def __init__(self, song_synthesizer, lyric_generator=None,
                  cfg: Optional[ServiceConfig] = None,
-                 logger: Optional[logging.Logger] = None):
+                 logger: Optional[logging.Logger] = None,
+                 canned_dir: Optional[str] = None):
         self.songs = song_synthesizer
         self.lyrics = lyric_generator
+        self.canned_dir = canned_dir  # melody_v2's canned demo songs
         self.cfg = cfg or ServiceConfig()
         self.logger = logger or make_logger(self.cfg)
         self._lock = threading.Lock()
@@ -81,7 +89,7 @@ class MusicGenerationService:
 
     def _resolve_text(self, data: dict):
         """(lyrics_text, None) from a request payload, or (None, response
-        dict) when the request resolves to an error response."""
+        dict) when the request resolves to an error or canned response."""
         text = str(data.get("text", "") or "").strip()
         if not text:
             keyword = str(data.get("keyword", "") or data.get("theme", "")
@@ -89,6 +97,12 @@ class MusicGenerationService:
             if not keyword:
                 return None, {"code": 201,
                               "message": "输入参数错误，必须输入非空字段text！"}
+            # canned demo songs for specific keywords (parity:
+            # controllers_music_generation_melody_v2/syn_music.py:30-54)
+            canned = canned_response(keyword, self.canned_dir)
+            if canned is not None:
+                self.logger.info("canned response for 关键词:%s", keyword)
+                return None, canned
             if self.lyrics is None:
                 return None, {"code": 201,
                               "message": "keyword 模式不可用：歌词模型未加载！"}
@@ -263,12 +277,21 @@ def main(argv=None):
     parser.add_argument("--host", default=None)
     parser.add_argument("--tiny", action="store_true",
                         help="random tiny models (smoke testing)")
+    parser.add_argument("--variant", default="svs_v6_multispeaker",
+                        choices=sorted(VARIANTS),
+                        help="reference server variant preset (v1 and "
+                             "v1_model are not ported yet and exit)")
     parser.add_argument("--lyric-model", default="t5", choices=["t5", "gpt2"],
                         help="lyric LM for keyword requests")
     parser.add_argument("--device", default="cuda",
                         help="torch device the models run on (default cuda; "
                              "raises when no GPU is present)")
     args = parser.parse_args(argv)
+    spec = VARIANTS[args.variant]
+    try:
+        check_ported(spec)
+    except NotImplementedError as e:
+        parser.error(str(e))
 
     cfg = ServiceConfig.from_file(args.config) if args.config \
         else ServiceConfig()
@@ -279,23 +302,27 @@ def main(argv=None):
         cfg.host = args.host
     if args.tiny:
         cfg.tiny = True
+    cfg.n_speakers = max(cfg.n_speakers, spec.n_speakers)
 
     logger = make_logger(cfg)
-    logger.info("loading models (tiny=%s, lyric model=%s, device=%s)...",
-                cfg.tiny, args.lyric_model, args.device)
+    logger.info("loading models (variant=%s, tiny=%s, lyric model=%s, "
+                "device=%s)...", spec.name, cfg.tiny, args.lyric_model,
+                args.device)
     import torch
     # full float32, the precision the port is held to against the JAX
     # package (cuDNN would otherwise run the convolutions in TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from ..models.lyrics import build_lyric_generator
-    from ..pipeline import build_default_song_synthesizer
-    songs = build_default_song_synthesizer(tiny=cfg.tiny,
-                                           n_speakers=cfg.n_speakers,
-                                           device=args.device)
+    from ..pipeline.synthesis import build_svs_synthesizers
+    songs = variant_song_synthesizer(
+        spec, build_svs_synthesizers(cfg.tiny, cfg.n_speakers,
+                                     device=args.device),
+        tiny=cfg.tiny, device=args.device)
     lyrics = build_lyric_generator(args.lyric_model, tiny=cfg.tiny,
                                    device=args.device)
-    service = MusicGenerationService(songs, lyrics, cfg, logger)
+    service = MusicGenerationService(songs, lyrics, cfg, logger,
+                                     canned_dir=spec.canned_dir)
     server = make_http_server(service, cfg.host, cfg.port)
     logger.info("serving on %s:%d", cfg.host, cfg.port)
     try:

@@ -137,7 +137,8 @@ def test_entry_points_refuse_missing_gpu():
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, the trainer and its CLI included, and
+    """Every module of the port (the trainer and its CLI, the server
+    variants and the seq2seq melody API among them), and
     chip_smoke.py, leave jax, flax and the JAX package unimported."""
     code = (
         "import pkgutil, importlib, sys\n"
@@ -149,7 +150,10 @@ def test_port_imports_no_jax():
         "             ('jax', 'flax', 'music_generation_tpu'))\n"
         "assert not bad, bad\n"
         "assert {p.__name__ + '.train.trainer',\n"
-        "        p.__name__ + '.train.__main__'} <= set(sys.modules)\n"
+        "        p.__name__ + '.train.__main__',\n"
+        "        p.__name__ + '.serve.variants',\n"
+        "        p.__name__ + '.models.melody.seq2seq_api'}"
+        " <= set(sys.modules)\n"
         "print('ok', len([k for k in sys.modules\n"
         "                 if k.startswith('music_generation_tpu_torch')]))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
