@@ -43,10 +43,27 @@ Phases, each fatal on failure (no exception is caught):
               against the CPU (same weights and draws, dataset durations,
               dropout off): every loss term and every parameter gradient;
               warm ms per step, samples/s, peak memory and a profile
+  9. checkpoint  the trained full-width generator through save_checkpoint
+              and tools/torch_export_trained_svs.py to svs_0..2, served by
+              serve.app's construction (configure + build_songs) with
+              --checkpoint-dir: one text request over HTTP, every served
+              tensor equal to the trained generator's, the decoder off its
+              init; the serve phase's pipeline (save_pipeline) loaded into
+              songs from another seed: every state_dict equal, melody
+              included
+ 10. decoders serve.app --decoder istft and mb_istft at full width (the
+              server's construction): one text request cold and twice
+              warm, a warm request's stage timings and launches;
+              VISinger.infer on the card against the CPU; the decoder alone
+              against the HiFi-GAN decoder on the same hidden state; three
+              full-width training steps with --durations mas (MAS kernel
+              twice per step, the plain version never), ms per warm step
+              and peak memory
 Launch counts are zeroed just before each main path and read just after
 it: phases 3-4 (the served slices), phase 5 (the variants, which align
-nothing: no MAS launch, kernel or plain) and phase 8 (training; its count
-is the one the kernels line reports). The lyric LMs launch no hand-written
+nothing: no MAS launch, kernel or plain), phase 8 (training; its count
+is the one the kernels line reports) and each decoder's training steps in
+phase 10. The lyric LMs launch no hand-written
 kernel. All phases run in full float32: TF32 is off for matmuls and cuDNN
 convolutions. The last stdout line is the result JSON; it is printed only
 when every phase passed. Exits non-zero without a CUDA device.
@@ -55,14 +72,17 @@ when every phase passed. Exits non-zero without a CUDA device.
 from __future__ import annotations
 
 import base64
+import contextlib
 import copy
 import io
 import json
+import os
 import subprocess
 import sys
 import threading
 import time
 import urllib.request
+from pathlib import Path
 
 import numpy as np
 
@@ -235,6 +255,28 @@ def _post(port, payload):
         return json.loads(resp.read())
 
 
+@contextlib.contextmanager
+def http_service(songs, lyrics=None, canned_dir=None):
+    """The port's HTTP service around ``songs`` on a free local port, on a
+    thread: yields (service, port), then shuts it down."""
+    from music_generation_tpu_torch.config import ServiceConfig
+    from music_generation_tpu_torch.serve.app import (MusicGenerationService,
+                                                      make_http_server)
+    service = MusicGenerationService(songs, lyrics,
+                                     ServiceConfig(log_dir="logs"),
+                                     canned_dir=canned_dir)
+    server = make_http_server(service, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield service, server.server_address[1]
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.close()
+        thread.join(timeout=30)
+
+
 def profiled(fn) -> dict:
     """fn() under torch.profiler: its wall, the device's busy time and
     share, the kernel launches and the heaviest kernels."""
@@ -329,30 +371,15 @@ def keyword_requests(port, clock) -> list:
 
 
 def phase_serve(device, t5_gen, gpt2_gen):
-    import torch
-    from music_generation_tpu_torch.config import ServiceConfig
-    from music_generation_tpu_torch.pipeline.synthesis import (
-        build_svs_synthesizers)
-    from music_generation_tpu_torch.serve.app import (MusicGenerationService,
-                                                      make_http_server)
-    from music_generation_tpu_torch.serve.variants import (
-        VARIANTS, variant_song_synthesizer)
+    from music_generation_tpu_torch.serve import app
     t0 = time.time()
-    # built as serve.app's main() builds the default variant
-    songs = variant_song_synthesizer(
-        VARIANTS["svs_v6_multispeaker"],
-        build_svs_synthesizers(n_speakers=3, seed=SEED, device=device),
-        seed=SEED, device=device)
+    # built by serve.app's own construction (the default variant)
+    args, cfg = app.configure(["--device", str(device)])
+    songs = app.build_songs(args, cfg, seed=SEED)
     log(f"serve phase: full-width pipeline built in {time.time() - t0:.1f} s")
-    cfg = ServiceConfig(log_dir="logs")
     clock = StageClock(t5_gen)
-    service = MusicGenerationService(songs, clock, cfg)
-    server = make_http_server(service, "127.0.0.1", 0)
-    thread = threading.Thread(target=server.serve_forever, daemon=True)
-    thread.start()
     latencies = []
-    try:
-        port = server.server_address[1]
+    with http_service(songs, clock) as (service, port):
         for i, payload in enumerate(REQUESTS):
             row = {"request": i, "singer_id": payload.get("singer_id", 0),
                    "chars": len(payload["text"])}
@@ -379,11 +406,6 @@ def phase_serve(device, t5_gen, gpt2_gen):
             raise AssertionError(f"gpt2 keyword request: {out}")
         keyword_rows.append(row)
         log("serve keyword request: " + json.dumps(row, ensure_ascii=False))
-    finally:
-        server.shutdown()
-        server.server_close()
-        service.close()
-        thread.join(timeout=30)
     breakdown = profile_request(songs, REQUESTS[0]["text"])
     log("serve profile: " + json.dumps(breakdown, ensure_ascii=False))
     return songs, latencies, keyword_rows, breakdown
@@ -546,29 +568,16 @@ def serve_variant(name: str, songs, recorder, canned_dir=None) -> dict:
     """One cold and two warm VARIANT_TEXT requests through the port's HTTP
     service, each checked; then one warm request's stage timings and
     launches."""
-    from music_generation_tpu_torch.config import ServiceConfig
-    from music_generation_tpu_torch.serve.app import (MusicGenerationService,
-                                                      make_http_server)
-    service = MusicGenerationService(songs, None, ServiceConfig(
-        log_dir="logs"), canned_dir=canned_dir)
-    server = make_http_server(service, "127.0.0.1", 0)
-    thread = threading.Thread(target=server.serve_forever, daemon=True)
-    thread.start()
     row = {"variant": name, "chars": len(VARIANT_TEXT)}
-    try:
+    with http_service(songs, canned_dir=canned_dir) as (_, port):
         for kind in ("cold", "warm", "warm_2"):
             recorder.sentences.clear()
             t0 = time.time()
-            out = _post(server.server_address[1], {"text": VARIANT_TEXT})
+            out = _post(port, {"text": VARIANT_TEXT})
             row[f"{kind}_s"] = time.time() - t0
             row["audio_s"] = check_song(f"{name} request", out)
             check_variant_melody(name, recorder.sentences,
                                  sdp=name.startswith("svs_v5"))
-    finally:
-        server.shutdown()
-        server.server_close()
-        service.close()
-        thread.join(timeout=30)
     row["sentences"] = [s[0] for s in recorder.sentences]
     row["profile"] = profile_request(songs, VARIANT_TEXT)
     log(f"variants phase: {name}: " + json.dumps(row, ensure_ascii=False))
@@ -615,10 +624,20 @@ def phase_variants(device, synthesizers) -> dict:
 
 
 def phase_gpu_vs_cpu(device):
+    from music_generation_tpu_torch.models.svs import SVSConfig
+    rel = visinger_card_vs_cpu(device, SVSConfig())
+    log(f"gpu-vs-cpu phase: full-width VISinger.infer, relative L2 error "
+        f"{rel:.3e} (TF32 off)")
+    return rel
+
+
+def visinger_card_vs_cpu(device, cfg) -> float:
+    """One sentence through VISinger(cfg).infer on the CPU and on the
+    card, same weights, noise and pinned durations: the relative L2 error
+    of the card's waveform (fails above 1e-4)."""
     import torch
     from music_generation_tpu_torch.frontend import ScoreFrontend
-    from music_generation_tpu_torch.models.svs import SVSConfig, VISinger
-    cfg = SVSConfig()
+    from music_generation_tpu_torch.models.svs import VISinger
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(SEED + 2)
         cpu_model = VISinger(cfg).eval()
@@ -648,10 +667,9 @@ def phase_gpu_vs_cpu(device):
         outs.append(audio[0, :n_samples, 0].double().cpu().numpy())
     cpu, gpu = outs
     rel = float(np.linalg.norm(gpu - cpu) / np.linalg.norm(cpu))
-    log(f"gpu-vs-cpu phase: full-width VISinger.infer, {len(cpu)} samples, "
-        f"relative L2 error {rel:.3e} (TF32 off)")
     if not np.isfinite(gpu).all() or not rel <= 1e-4:
-        raise AssertionError(f"GPU vs CPU relative error {rel}")
+        raise AssertionError(f"{cfg.decoder_type} GPU vs CPU relative "
+                             f"error {rel} over {len(cpu)} samples")
     return rel
 
 
@@ -975,6 +993,10 @@ def phase_train(device) -> dict:
     before = {f"{tag}.{n}": p.detach().clone()
               for tag, s in (("gen", gen_state), ("disc", disc_state))
               for n, p in s.model.named_parameters()}
+    # the random-init decoder, which the checkpoint phase's served weights
+    # must differ from
+    init_decoder = {k[len("gen."):]: v.cpu() for k, v in before.items()
+                    if k.startswith("gen.decoder.")}
     torch.cuda.synchronize()
     log(f"train phase: full-width states built in {time.time() - t0:.1f} s "
         f"(generator {n_params[0]:,}, discriminator {n_params[1]:,} "
@@ -1061,10 +1083,10 @@ def phase_train(device) -> dict:
         f"neg_cent {list(neg_cent.shape)}; profiled step: device busy "
         f"{prof['device_busy_share']:.3f}, {prof['kernel_launches']} "
         f"launches")
-    del gen_state, disc_state, batches, live
+    del batches, live
     torch.cuda.empty_cache()
     result["gpu_vs_cpu"] = train_step_on_card_and_cpu(device)
-    return result
+    return result, (gen_state, disc_state, init_decoder)
 
 
 def phases_before_train(device) -> dict:
@@ -1102,6 +1124,9 @@ def phases_before_train(device) -> dict:
         raise AssertionError(f"the variants ran MAS: kernel "
                              f"{maximum_path.kernel_launches}, plain "
                              f"{maximum_path.plain_calls}")
+    # the serve phase's pipeline, saved and kept on the host for the
+    # checkpoint phase's round trip
+    served = pipeline_snapshot(songs)
     del songs
     torch.cuda.empty_cache()
 
@@ -1112,7 +1137,260 @@ def phases_before_train(device) -> dict:
     return {"record": record, "serve_latency_s": latencies,
             "serve_keyword": keyword_rows, "serve_profile": breakdown,
             "variants": variants,
-            "gpu_vs_cpu_rel": rel, "lyrics": lyrics}
+            "gpu_vs_cpu_rel": rel, "lyrics": lyrics, "served": served}
+
+
+SCRATCH = Path(__file__).resolve().parent / "build" / "chip_smoke"
+DECODER_TEXT = "小小的天有大大的梦想，我知道我一直有双隐形的翅膀"
+DECODER_STEPS = 3         # full-width training steps per iSTFT decoder
+
+
+def state_on_host(model) -> dict:
+    return {k: v.detach().cpu().clone() for k, v in
+            model.state_dict().items()}
+
+
+def pipeline_models(songs) -> dict:
+    """name -> model of every component compat.checkpoints saves."""
+    out = {f"svs_{sid}": s.model for sid, s in songs.synthesizers.items()}
+    out["melody_notes"] = songs.melody.note_model
+    out["melody_duration"] = songs.melody.duration_model
+    return out
+
+
+def pipeline_snapshot(songs) -> dict:
+    """save_pipeline(songs) into SCRATCH/pipeline, and a host copy of
+    every saved model's state."""
+    from music_generation_tpu_torch.compat import save_pipeline
+    path = SCRATCH / "pipeline"
+    save_pipeline(str(path), songs)
+    return {"dir": str(path), "states": {
+        k: state_on_host(m) for k, m in pipeline_models(songs).items()}}
+
+
+def states_equal(a: dict, b: dict) -> bool:
+    import torch
+    return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def serve_once(songs, text: str, kinds=("cold",)) -> dict:
+    """``text`` through the port's HTTP service once per kind, each answer
+    checked: seconds per kind and of audio."""
+    row = {"chars": len(text)}
+    with http_service(songs) as (_, port):
+        for kind in kinds:
+            t0 = time.time()
+            out = _post(port, {"text": text})
+            row[f"{kind}_s"] = time.time() - t0
+            row["audio_s"] = check_song(f"{kind} request", out)
+    return row
+
+
+def phase_checkpoint(device, gen_state, disc_state, init_decoder,
+                     served) -> dict:
+    """Trained weights into the server at full width: the train phase's
+    states through save_checkpoint and tools/torch_export_trained_svs.py
+    to svs_0..2, served by serve.app's construction with --checkpoint-dir;
+    then the serve phase's pipeline loaded into songs from another seed."""
+    import shutil
+    import torch
+    from music_generation_tpu_torch.compat import load_pipeline
+    from music_generation_tpu_torch.serve import app
+    from music_generation_tpu_torch.train import save_checkpoint
+    from music_generation_tpu_torch.ops import maximum_path
+    from tools.torch_export_trained_svs import export_svs
+    start = time.time()
+    # the checkpoint path aligns nothing: no MAS launch, kernel or plain
+    maximum_path.kernel_launches = 0
+    maximum_path.plain_calls = 0
+    row = {}
+    try:
+        trained = state_on_host(gen_state.model)
+        t0 = time.time()
+        ckpt = save_checkpoint(str(SCRATCH / "train"), gen_state,
+                               disc_state, gen_state.step)
+        row["save_checkpoint_s"] = time.time() - t0
+        row["checkpoint_file"] = os.path.basename(ckpt)
+        t0 = time.time()
+        export_svs(ckpt, str(SCRATCH / "served"), speakers=(0, 1, 2))
+        row["export_s"] = time.time() - t0
+        args, cfg = app.configure(["--checkpoint-dir",
+                                   str(SCRATCH / "served"), "--device",
+                                   str(device)])
+        t0 = time.time()
+        songs = app.build_songs(args, cfg)
+        torch.cuda.synchronize()
+        row["build_and_load_s"] = time.time() - t0
+        t0 = time.time()
+        load_pipeline(cfg.checkpoint_dir, songs)
+        torch.cuda.synchronize()
+        row["load_s"] = time.time() - t0
+        for sid, svs in songs.synthesizers.items():
+            if not states_equal(state_on_host(svs.model), trained):
+                raise AssertionError(f"served singer {sid} is not the "
+                                     "trained generator")
+        same = [k for k, v in init_decoder.items()
+                if torch.equal(trained[k], v)]
+        if same:
+            raise AssertionError(f"trained decoder tensors still at their "
+                                 f"init: {same[:4]}")
+        row["served"] = serve_once(songs, REQUESTS[1]["text"])
+        del songs
+        torch.cuda.empty_cache()
+
+        args, cfg = app.configure(["--device", str(device)])
+        t0 = time.time()
+        songs = app.build_songs(args, cfg, seed=SEED + 9)
+        loaded = load_pipeline(served["dir"], songs)
+        torch.cuda.synchronize()
+        row["round_trip_build_and_load_s"] = time.time() - t0
+        models = pipeline_models(songs)
+        if sorted(f"{k}.pt" for k in models) != sorted(loaded):
+            raise AssertionError(f"round trip loaded {loaded}")
+        for name, model in models.items():
+            if not states_equal(state_on_host(model),
+                                served["states"][name]):
+                raise AssertionError(f"round trip: {name} differs from "
+                                     "the serve phase's")
+        row["round_trip_files"] = loaded
+        del songs
+    finally:
+        shutil.rmtree(SCRATCH, ignore_errors=True)
+    torch.cuda.empty_cache()
+    if maximum_path.kernel_launches or maximum_path.plain_calls:
+        raise AssertionError(f"the checkpoint path ran MAS: kernel "
+                             f"{maximum_path.kernel_launches}, plain "
+                             f"{maximum_path.plain_calls}")
+    row["phase_s"] = time.time() - start
+    log(f"checkpoint phase ({row['phase_s']:.1f} s): trained generator -> "
+        f"{row['checkpoint_file']}"
+        f" -> svs_0..2 -> served: every tensor equal to the trained generator, "
+        f"decoder off its init; save {row['save_checkpoint_s']:.1f} s, "
+        f"export {row['export_s']:.1f} s, build + load "
+        f"{row['build_and_load_s']:.1f} s, load {row['load_s']:.3f} s; "
+        f"request {json.dumps(row['served'])}; pipeline round trip "
+        f"{len(row['round_trip_files'])} files equal "
+        f"({row['round_trip_build_and_load_s']:.1f} s)")
+    return row
+
+
+def decoder_train_steps(device, cfg) -> dict:
+    """DECODER_STEPS full-width GAN steps (B=8, 64 phones, 480 frames,
+    --durations mas) with ``cfg``'s decoder: losses finite, every
+    submodule moved, the MAS kernel twice per step and the plain version
+    never; ms per warm step and peak memory."""
+    import torch
+    from music_generation_tpu_torch.ops import maximum_path
+    from music_generation_tpu_torch.train import (TrainConfig, create_states,
+                                                  make_train_step,
+                                                  synthetic_batch, to_device,
+                                                  tool_shapes)
+    tc = TrainConfig(use_mas=True, warmup_steps=0)
+    phones, frames = tool_shapes(False)
+    gen_state, disc_state = create_states(cfg, tc, device)
+    step = make_train_step(cfg, tc)
+    generator = torch.Generator(device).manual_seed(SEED)
+    before = {f"{tag}.{n}": p.detach().clone()
+              for tag, s in (("gen", gen_state), ("disc", disc_state))
+              for n, p in s.model.named_parameters()}
+    maximum_path.kernel_launches = 0
+    maximum_path.plain_calls = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, losses = [], []
+    for i in range(DECODER_STEPS):
+        batch = to_device(synthetic_batch(cfg, batch=TRAIN_BATCH,
+                                          t_phones=phones, t_frames=frames,
+                                          seed=i), device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step(gen_state, disc_state, batch, generator)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        values = {k: float(v) for k, v in metrics.items()}
+        if not all(np.isfinite(v) for v in values.values()):
+            raise AssertionError(f"{cfg.decoder_type} step {i}: {values}")
+        losses.append({k: v for k, v in values.items()
+                       if k.startswith("loss")})
+    launches, plain = maximum_path.kernel_launches, maximum_path.plain_calls
+    if launches != 2 * DECODER_STEPS or plain:
+        raise AssertionError(f"{cfg.decoder_type}: MAS kernel {launches} "
+                             f"launches, plain {plain}")
+    moved = {}
+    for tag, s in (("gen", gen_state), ("disc", disc_state)):
+        for n, p in s.model.named_parameters():
+            key = f"{tag}.{n}"
+            sub = ".".join(key.split(".")[:2])
+            moved[sub] = moved.get(sub, 0) + (not torch.equal(before[key], p))
+    still = sorted(k for k, v in moved.items() if not v)
+    if still:
+        raise AssertionError(f"{cfg.decoder_type}: no parameter of {still} "
+                             "moved")
+    return {"cold_ms": ms[0], "warm_ms": ms[1:],
+            "ms_per_warm_step": float(np.median(ms[1:])),
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "mas_launches": launches, "mas_plain_calls": plain,
+            "losses_first_last": [losses[0], losses[-1]]}
+
+
+def phase_decoders(device) -> dict:
+    """serve.app --decoder istft and mb_istft at full width: built by the
+    server's construction, one text request cold and twice warm, a warm
+    request's stage timings and launches; VISinger.infer on the card
+    against the CPU; the decoder alone against the HiFi-GAN decoder on
+    the same hidden state; DECODER_STEPS training steps."""
+    import torch
+    from music_generation_tpu_torch.models.svs import SVSConfig, VISinger
+    from music_generation_tpu_torch.serve import app
+    from music_generation_tpu_torch.train import build_svs_config
+    start = time.time()
+    rows = {}
+    hidden = torch.randn(4, 512, SVSConfig().inter_channels,
+                         generator=torch.Generator(device).manual_seed(SEED),
+                         device=device) * 0.5
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED)
+        hifigan = VISinger(SVSConfig()).decoder.to(device).eval()
+    with torch.no_grad():
+        hifigan_ms = cuda_ms(lambda: hifigan(hidden), reps=10)
+    del hifigan
+    for decoder in ("istft", "mb_istft"):
+        t0 = time.time()
+        args, cfg = app.configure(["--decoder", decoder, "--device",
+                                   str(device)])
+        songs = app.build_songs(args, cfg)
+        row = {"build_s": time.time() - t0}
+        row["served"] = serve_once(songs, DECODER_TEXT,
+                                   kinds=("cold", "warm", "warm_2"))
+        row["profile"] = profile_request(songs, DECODER_TEXT)
+        model = songs.synthesizers[0].model
+        with torch.no_grad():
+            row["decoder_ms"] = cuda_ms(lambda: model.decoder(hidden),
+                                        reps=10)
+        row["hifigan_decoder_ms"] = hifigan_ms
+        row["decoder_hidden_shape"] = list(hidden.shape)
+        del songs, model
+        torch.cuda.empty_cache()
+        row["infer_card_vs_cpu_rel_l2"] = visinger_card_vs_cpu(
+            device, SVSConfig(decoder_type=decoder))
+        row["train"] = decoder_train_steps(
+            device, build_svs_config(decoder=decoder))
+        torch.cuda.empty_cache()
+        rows[decoder] = row
+        log(f"decoders phase: {decoder}: warm request "
+            f"{row['served']['warm_s']:.3f} / {row['served']['warm_2_s']:.3f}"
+            f" s (cold {row['served']['cold_s']:.3f} s), "
+            f"{row['profile']['kernel_launches']} launches, busy "
+            f"{row['profile']['device_busy_share']:.3f}; decoder "
+            f"{row['decoder_ms']:.3f} ms vs HiFi-GAN {hifigan_ms:.3f} ms on "
+            f"{list(hidden.shape)}; infer card vs CPU "
+            f"{row['infer_card_vs_cpu_rel_l2']:.3e}; {DECODER_STEPS} "
+            f"training steps: warm {row['train']['ms_per_warm_step']:.1f} "
+            f"ms, peak {row['train']['peak_memory_bytes'] / 2 ** 30:.2f} "
+            f"GiB, MAS {row['train']['mas_launches']} launches, plain 0")
+    rows["phase_s"] = time.time() - start
+    log(f"decoders phase: {rows['phase_s']:.1f} s")
+    return rows
 
 
 def main() -> int:
@@ -1137,10 +1415,15 @@ def main() -> int:
     log(f"build phase: {build.kernel_sources()} in {time.time() - t0:.1f} s")
 
     earlier = phases_before_train(device)
-    train = phase_train(device)
+    train, trained = phase_train(device)
+    checkpoint = phase_checkpoint(device, *trained, earlier.pop("served"))
+    del trained
+    torch.cuda.empty_cache()
+    decoders = phase_decoders(device)
     record = earlier.pop("record")
     record["launches"] = train["mas_launches"]
-    log(json.dumps(earlier | {"train": train}, ensure_ascii=False))
+    log(json.dumps(earlier | {"train": train, "checkpoint": checkpoint,
+                              "decoders": decoders}, ensure_ascii=False))
     log(json.dumps({"kernels": [record]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,7 +12,9 @@ imports no JAX. Layouts:
     weight_ih / weight_hh (gates r|z|n, i|f|g|o), the biases flax lacks
     set to zero
 Every leaf must be consumed and every parameter of the port module filled,
-with matching shapes; anything else raises.
+with matching shapes; anything else raises (``strict=False`` allows
+unfilled parameters, which compat.checkpoints.load_params then keeps at
+their init).
 """
 
 from __future__ import annotations
@@ -81,9 +83,11 @@ def _convert(module: nn.Module, name: str, value: np.ndarray) -> np.ndarray:
 
 
 def state_dict_from_flax(params: dict, model: nn.Module,
-                         rename: Callable[[str], str] = lambda n: n) -> dict:
+                         rename: Callable[[str], str] = lambda n: n,
+                         strict: bool = True) -> dict:
     """state_dict for ``model`` from the matching flax tree (any port
-    module whose submodule names follow the JAX package's)."""
+    module whose submodule names follow the JAX package's); with
+    ``strict`` False the tree may lack parameters."""
     params = params.get("params", params)
     targets = dict(model.named_parameters())
     modules = dict(model.named_modules())
@@ -100,19 +104,24 @@ def state_dict_from_flax(params: dict, model: nn.Module,
         if name in state:
             raise ValueError(f"two leaves map onto {name}")
         state[name] = torch.from_numpy(np.array(out))
-    missing = sorted(set(targets) - set(state))
+    missing = sorted(set(targets) - set(state)) if strict else []
     if unknown or missing:
         raise ValueError(f"unconsumed leaves: {unknown}; "
                          f"unfilled parameters: {missing}")
     return state
 
 
-def visinger_state_dict_from_flax(params: dict, cfg: SVSConfig) -> dict:
-    """state_dict for the port's VISinger(cfg) from the JAX VISinger tree
-    (which must hold every submodule, spec_encoder included)."""
+def visinger_state_dict_from_flax(params: dict, cfg: SVSConfig,
+                                  strict: bool = True) -> dict:
+    """state_dict for the port's VISinger(cfg) from the JAX VISinger tree,
+    the decoder of ``cfg.decoder_type`` included (an iSTFT tree's
+    decoder/istft_head too). Strict, the tree must hold every submodule,
+    spec_encoder included; the tree a JAX SVSSynthesizer serves (initialised
+    through infer) has no spec_encoder, so it converts with ``strict``
+    False."""
     with torch.device("meta"):
         model = VISinger(cfg)
-    return state_dict_from_flax(params, model)
+    return state_dict_from_flax(params, model, strict=strict)
 
 
 def mpd_state_dict_from_flax(params: dict) -> dict:
@@ -128,7 +137,7 @@ _PRENORM = re.compile(
     r"\b(attn_res|ff_res|self_res|cross_res|ffn_res)\.(\d+)\.[a-z]+\.\2\.")
 
 
-def _melody_rename(name: str) -> str:
+def melody_rename(name: str) -> str:
     """'encoder.attn_res.0.attn.0.q.weight' ->
     'encoder.attn_res.0.sublayer.q.weight'."""
     return _PRENORM.sub(r"\1.\2.sublayer.", name)
@@ -141,9 +150,9 @@ def melody_state_dicts_from_flax(note_params: dict, duration_params: dict,
     with torch.device("meta"):
         notes = MelodyTransformer(cfg)
         durations = MSEDurationModel(cfg)
-    return (state_dict_from_flax(note_params, notes, _melody_rename),
+    return (state_dict_from_flax(note_params, notes, melody_rename),
             state_dict_from_flax(duration_params, durations,
-                                 _melody_rename))
+                                 melody_rename))
 
 
 _SUFFIXED = re.compile(r"\b(ln|wi)\.(\d+)\.")

@@ -16,8 +16,8 @@ class ServiceConfig:
     port: int = 5005
     log_dir: str = "./logs"
     log_name: str = "music_generation_tpu_torch"
-    # "model" = in-process lyric->melody->SVS (the only backend the port
-    # serves so far)
+    # "model" = in-process lyric->melody->SVS, the only backend the port
+    # serves; "shell" (MUSIC_BACKEND=new) makes serve.app exit at startup
     backend: str = "model"
     n_speakers: int = 3
     tiny: bool = False           # tiny random models (CI / smoke)
@@ -32,8 +32,8 @@ class ServiceConfig:
     # largest SVS batch per device call: inherited; not yet measured on the
     # H100
     max_batch_sentences: int = 16
-    # parity with server_configs/config_music_generation.yaml:12: read but
-    # not used; the port's server does not terminate TLS
+    # server_configs/config_music_generation.yaml:12: a PEM certificate
+    # makes serve.app terminate TLS (--cert-file overrides it)
     cert_file_path: Optional[str] = None
 
     @classmethod

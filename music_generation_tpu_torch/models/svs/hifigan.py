@@ -13,7 +13,6 @@ from __future__ import annotations
 
 from typing import Sequence
 
-
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -54,7 +53,14 @@ class ResBlock2(nn.Module):
         return x
 
 
-class Generator(nn.Module):
+class HiFiGANTrunk(nn.Module):
+    """conv_pre, then per upsample rate a leaky ReLU, a weight-normed
+    transposed conv and the mean of the resblocks: the learned part shared
+    by the HiFi-GAN generator and the iSTFT generators (models/svs/istft.py).
+    ``trunk`` takes [B, T_frames, C] and returns channels-first
+    [B, out_channels, T_frames * prod(rates)] after a final leaky ReLU
+    (slope 0.01)."""
+
     def __init__(self, in_channels: int, resblock: str = "1",
                  resblock_kernel_sizes: Sequence[int] = (3, 7, 11),
                  resblock_dilation_sizes: Sequence[Sequence[int]] =
@@ -76,11 +82,9 @@ class Generator(nn.Module):
                 res_cls(nxt, rk, tuple(rd)) for rk, rd in
                 zip(resblock_kernel_sizes, resblock_dilation_sizes)))
             ch = nxt
-        # small-init output projection (1e-4 x the fan-in scale), as in the
-        # JAX package: random-init audio starts in tanh's linear region
-        self.conv_post = Conv1d(ch, 1, 7, bias=False, init_scale=1e-4)
+        self.out_channels = ch
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def trunk(self, x: torch.Tensor) -> torch.Tensor:
         x = self.conv_pre(x.transpose(1, 2))
         for up, blocks in zip(self.up, self.res):
             x = up(F.leaky_relu(x, LRELU_SLOPE))
@@ -89,8 +93,19 @@ class Generator(nn.Module):
                 y = block(x)
                 xs = y if xs is None else xs + y
             x = xs / len(blocks)
-        x = self.conv_post(F.leaky_relu(x))
-        return torch.tanh(x).transpose(1, 2)
+        return F.leaky_relu(x)
+
+
+class Generator(HiFiGANTrunk):
+    def __init__(self, in_channels: int, *args, **kwargs):
+        super().__init__(in_channels, *args, **kwargs)
+        # small-init output projection (1e-4 x the fan-in scale), as in the
+        # JAX package: random-init audio starts in tanh's linear region
+        self.conv_post = Conv1d(self.out_channels, 1, 7, bias=False,
+                                init_scale=1e-4)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.tanh(self.conv_post(self.trunk(x))).transpose(1, 2)
 
 
 class DiscriminatorP(nn.Module):

@@ -1,9 +1,9 @@
 """VISinger: VITS-derived singing-voice synthesizer.
 
-Twin of music_generation_tpu/models/svs/visinger.py for the default
-configuration (the AE variant, HiFi-GAN decoder, F0 from the F0
-predictor). Layout is channels-last [B, T, C] with [B, T, 1] masks, as in
-the JAX package, so the two compare like with like.
+Twin of music_generation_tpu/models/svs/visinger.py for the AE variant
+with F0 from the F0 predictor and the HiFi-GAN, iSTFT or MB-iSTFT
+decoder. Layout is channels-last [B, T, C] with [B, T, 1] masks, as in the
+JAX package, so the two compare like with like.
 
 Ported: SVSConfig, f0_to_coarse, TextEncoder, F0Predictor,
 MelPredictNetwork, FramePriorNetwork, TextPostNet, PosteriorEncoder,
@@ -12,8 +12,8 @@ forward (VISinger.forward, with dataset or MAS durations). Dropout is
 explicit: every forward takes ``deterministic`` (default True) and a
 ``torch.Generator``, as the flax modules take ``deterministic`` and a
 dropout rng; the module's train/eval mode plays no part. The non-AE
-variant, NSF excitation, the iSTFT decoders and f0_mode="score" /
-f0_residual come with later parts of the port.
+variant, NSF excitation, decoder_bf16 and f0_mode="score" / f0_residual
+come with later parts of the port.
 """
 
 from __future__ import annotations
@@ -35,6 +35,7 @@ from ...core.wavenet import WaveNet
 from ...ops import mas_duration_targets
 from ..duration import DurationPredictor
 from .hifigan import Generator
+from .istft import ISTFTGenerator, MBISTFTGenerator
 
 _F0_BIN = 256
 _F0_MEL_MIN = 1127.0 * math.log(1.0 + 50.0 / 700.0)
@@ -73,6 +74,18 @@ class SVSConfig:
     upsample_initial_channel: int = 512
     upsample_kernel_sizes: Sequence[int] = (16, 16, 4, 4)
     segment_size: int = 12288         # samples per training slice
+    # vocoder decoder family (models/svs/istft.py): "hifigan" (reference
+    # parity), "istft" (an iSTFT head replaces the last upsample stages) or
+    # "mb_istft" (+ PQMF subbands); istft_upsample_rates * istft_hop
+    # (* mb_subbands) must equal hop_length
+    decoder_type: str = "hifigan"
+    istft_n_fft: int = 16
+    istft_hop: int = 4
+    istft_upsample_rates: Sequence[int] = (8, 8)
+    istft_upsample_kernel_sizes: Sequence[int] = (16, 16)
+    mb_subbands: int = 4
+    mb_upsample_rates: Sequence[int] = (4, 4)
+    mb_upsample_kernel_sizes: Sequence[int] = (8, 8)
     sampling_rate: int = 22050
     hop_length: int = 256
     frame_seconds: float = 0.0116     # duration->frames divisor
@@ -233,7 +246,8 @@ class SpecDecoder(nn.Module):
 
 
 class VISinger(nn.Module):
-    """AE variant with the HiFi-GAN decoder. Methods:
+    """AE variant with the HiFi-GAN, iSTFT or MB-iSTFT decoder
+    (``cfg.decoder_type``). Methods:
       - infer(...): score -> waveform
       - forward(...): the training forward (pieces for the GAN/VAE losses)
     """
@@ -248,11 +262,31 @@ class VISinger(nn.Module):
         self.spec_encoder = PosteriorEncoder(c)
         self.spec_flow = ResidualCouplingBlock(
             c.inter_channels, c.hidden_channels, 5, 1, 4)
-        self.decoder = Generator(
-            c.inter_channels, c.resblock, tuple(c.resblock_kernel_sizes),
-            tuple(tuple(d) for d in c.resblock_dilation_sizes),
-            tuple(c.upsample_rates), c.upsample_initial_channel,
-            tuple(c.upsample_kernel_sizes))
+        trunk = (c.inter_channels, c.resblock,
+                 tuple(c.resblock_kernel_sizes),
+                 tuple(tuple(d) for d in c.resblock_dilation_sizes))
+        if c.decoder_type == "istft":
+            up = math.prod(c.istft_upsample_rates) * c.istft_hop
+            assert up == c.hop_length, (up, c.hop_length)
+            self.decoder = ISTFTGenerator(
+                *trunk, tuple(c.istft_upsample_rates),
+                c.upsample_initial_channel,
+                tuple(c.istft_upsample_kernel_sizes), c.istft_n_fft,
+                c.istft_hop)
+        elif c.decoder_type == "mb_istft":
+            up = (math.prod(c.mb_upsample_rates) * c.istft_hop
+                  * c.mb_subbands)
+            assert up == c.hop_length, (up, c.hop_length)
+            self.decoder = MBISTFTGenerator(
+                *trunk, tuple(c.mb_upsample_rates),
+                c.upsample_initial_channel,
+                tuple(c.mb_upsample_kernel_sizes), c.istft_n_fft,
+                c.istft_hop, c.mb_subbands)
+        else:
+            assert c.decoder_type == "hifigan", c.decoder_type
+            self.decoder = Generator(
+                *trunk, tuple(c.upsample_rates), c.upsample_initial_channel,
+                tuple(c.upsample_kernel_sizes))
         self.spec_decoder = SpecDecoder(c)
         self.spec_proj = Conv1d(c.spec_channels, c.inter_channels, 1)
 

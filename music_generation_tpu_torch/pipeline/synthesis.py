@@ -11,6 +11,7 @@ every sentence and must match for the two packages to agree.
 from __future__ import annotations
 
 import bisect
+import dataclasses
 import logging
 import re
 import threading
@@ -299,14 +300,18 @@ def build_default_song_synthesizer(tiny: bool = False, n_speakers: int = 3,
 
 
 def build_svs_synthesizers(tiny: bool = False, n_speakers: int = 3,
-                           seed: int = 0, device=None
+                           seed: int = 0, device=None,
+                           decoder: str = "hifigan"
                            ) -> dict[int, SVSSynthesizer]:
     """One random-initialised SVSSynthesizer per speaker (speaker i from
     ``seed + i``), sharing one score frontend, on ``device`` (default
-    cuda)."""
+    cuda), with the ``decoder`` vocoder family (hifigan, istft or
+    mb_istft: serve.app --decoder, which must match how checkpoints were
+    trained)."""
     device = resolve_device(device)
     # the tiny SVS config does not depend on the vocabulary
-    scfg = tiny_configs(0)[1] if tiny else SVSConfig()
+    scfg = dataclasses.replace(tiny_configs(0)[1] if tiny else SVSConfig(),
+                               decoder_type=decoder)
     frontend = ScoreFrontend()
     return {i: SVSSynthesizer(scfg, seed=seed + i, frontend=frontend,
                               device=device)

@@ -16,9 +16,14 @@ wire contract as the reference controllers:
 
 Run: python -m music_generation_tpu_torch.serve.app --port 5005
      [--variant svs_v6_multispeaker|svs_v5|svs_v5_multispeaker|melody_v2]
-     [--lyric-model t5|gpt2] [--tiny] [--device cpu]
-(--variant v1 and v1_model exit at startup: their shell backend and
-TeleMelody melody are not ported yet.)
+     [--decoder hifigan|istft|mb_istft] [--checkpoint-dir DIR]
+     [--lyric-model t5|gpt2] [--cert-file PEM [--key-file PEM]] [--tiny]
+     [--device cpu]
+--checkpoint-dir (or the config's checkpoint_dir) loads a pipeline
+directory (compat.checkpoints) before serving; a certificate (--cert-file
+or the config's cert_file_path) serves HTTPS. --variant v1 and v1_model,
+and MUSIC_BACKEND=new, exit at startup: the shell backend and the
+TeleMelody melody are not ported yet.
 """
 
 from __future__ import annotations
@@ -168,8 +173,12 @@ def capture_profile(trace_dir: str, seconds: float) -> str:
     return path
 
 
-def make_http_server(service: MusicGenerationService, host: str, port: int
-                     ) -> ThreadingHTTPServer:
+def make_http_server(service: MusicGenerationService, host: str, port: int,
+                     cert_file: Optional[str] = None,
+                     key_file: Optional[str] = None) -> ThreadingHTTPServer:
+    """The HTTP server of ``service``; with ``cert_file`` (a PEM
+    certificate, its key in ``key_file`` or appended to it) it speaks
+    HTTPS."""
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
 
@@ -266,10 +275,19 @@ def make_http_server(service: MusicGenerationService, host: str, port: int
         def log_message(self, fmt, *args):
             service.logger.info("%s - %s", self.address_string(), fmt % args)
 
-    return ThreadingHTTPServer((host, port), Handler)
+    server = ThreadingHTTPServer((host, port), Handler)
+    if cert_file:
+        import ssl
+        ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+        ctx.load_cert_chain(cert_file, keyfile=key_file)
+        server.socket = ctx.wrap_socket(server.socket, server_side=True)
+    return server
 
 
-def main(argv=None):
+def configure(argv=None):
+    """Parse the command line and resolve the service config (--config
+    file, then the environment, then the flags): (args, cfg). Exits 2 for
+    what the port cannot serve."""
     parser = argparse.ArgumentParser(
         description="music_generation_tpu_torch server (PyTorch/CUDA)")
     parser.add_argument("--config", default=None)
@@ -283,6 +301,21 @@ def main(argv=None):
                              "v1_model are not ported yet and exit)")
     parser.add_argument("--lyric-model", default="t5", choices=["t5", "gpt2"],
                         help="lyric LM for keyword requests")
+    parser.add_argument("--decoder", default="hifigan",
+                        choices=["hifigan", "istft", "mb_istft"],
+                        help="SVS vocoder decoder family the checkpoints "
+                             "were trained with (train --decoder)")
+    parser.add_argument("--checkpoint-dir", default=None,
+                        help="pipeline checkpoints to serve (svs_<id>.pt, "
+                             "melody_*.pt: compat.save_pipeline, "
+                             "tools/torch_export_trained_svs.py, "
+                             "tools/torch_import_pipeline.py)")
+    parser.add_argument("--cert-file", default=None,
+                        help="PEM certificate: serve HTTPS (overrides the "
+                             "config's cert_file_path)")
+    parser.add_argument("--key-file", default=None,
+                        help="PEM private key for the certificate (omit "
+                             "when the key is appended to the cert PEM)")
     parser.add_argument("--device", default="cuda",
                         help="torch device the models run on (default cuda; "
                              "raises when no GPU is present)")
@@ -296,35 +329,67 @@ def main(argv=None):
     cfg = ServiceConfig.from_file(args.config) if args.config \
         else ServiceConfig()
     cfg = ServiceConfig.from_env(cfg)
+    if cfg.backend != "model":
+        parser.error(f"backend {cfg.backend!r} (MUSIC_BACKEND=new): the "
+                     f"shell backend (ollama/DiffRhythm pipeline) is not "
+                     f"ported yet (ROADMAP.md Queue 1 item 9)")
     if args.port:
         cfg.port = args.port
     if args.host:
         cfg.host = args.host
     if args.tiny:
         cfg.tiny = True
+    if args.checkpoint_dir:
+        cfg.checkpoint_dir = args.checkpoint_dir
+    if args.cert_file:
+        cfg.cert_file_path = args.cert_file
     cfg.n_speakers = max(cfg.n_speakers, spec.n_speakers)
+    return args, cfg
 
+
+def build_songs(args, cfg: ServiceConfig, seed: int = 0):
+    """The song pipeline main() serves: the variant's melody generator
+    around one SVS model per speaker with the --decoder vocoder, on
+    --device, from ``seed``; then the checkpoint dir's weights, when the
+    config names one."""
+    from ..pipeline.synthesis import build_svs_synthesizers
+    songs = variant_song_synthesizer(
+        VARIANTS[args.variant],
+        build_svs_synthesizers(cfg.tiny, cfg.n_speakers, seed=seed,
+                               device=args.device, decoder=args.decoder),
+        tiny=cfg.tiny, seed=seed, device=args.device)
+    if cfg.checkpoint_dir:
+        from ..compat import load_pipeline
+        loaded = load_pipeline(cfg.checkpoint_dir, songs)
+        logging.getLogger(cfg.log_name).info(
+            "loaded checkpoints from %s: %s", cfg.checkpoint_dir,
+            ", ".join(loaded) or "none")
+    return songs
+
+
+def main(argv=None):
+    args, cfg = configure(argv)
     logger = make_logger(cfg)
-    logger.info("loading models (variant=%s, tiny=%s, lyric model=%s, "
-                "device=%s)...", spec.name, cfg.tiny, args.lyric_model,
-                args.device)
+    logger.info("loading models (variant=%s, decoder=%s, tiny=%s, lyric "
+                "model=%s, device=%s)...", args.variant, args.decoder,
+                cfg.tiny, args.lyric_model, args.device)
     import torch
     # full float32, the precision the port is held to against the JAX
     # package (cuDNN would otherwise run the convolutions in TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from ..models.lyrics import build_lyric_generator
-    from ..pipeline.synthesis import build_svs_synthesizers
-    songs = variant_song_synthesizer(
-        spec, build_svs_synthesizers(cfg.tiny, cfg.n_speakers,
-                                     device=args.device),
-        tiny=cfg.tiny, device=args.device)
+    songs = build_songs(args, cfg)
     lyrics = build_lyric_generator(args.lyric_model, tiny=cfg.tiny,
                                    device=args.device)
     service = MusicGenerationService(songs, lyrics, cfg, logger,
-                                     canned_dir=spec.canned_dir)
-    server = make_http_server(service, cfg.host, cfg.port)
-    logger.info("serving on %s:%d", cfg.host, cfg.port)
+                                     canned_dir=VARIANTS[args.variant]
+                                     .canned_dir)
+    cert = cfg.cert_file_path
+    server = make_http_server(service, cfg.host, cfg.port, cert_file=cert,
+                              key_file=args.key_file)
+    logger.info("serving on %s:%d%s", cfg.host, cfg.port,
+                " (TLS)" if cert else "")
     try:
         server.serve_forever()
     finally:

@@ -11,7 +11,7 @@ preset reproduces one:
   svs_v6_ms     T5 lyrics + transformer melody w/ MSE durations + 3 speakers
 The port serves melody_v2, svs_v5, svs_v5_multispeaker and
 svs_v6_multispeaker; the shell backend and TeleMelody are not ported yet
-(ROADMAP.md, Queue 1 items 5 and 10) and raise NotImplementedError.
+(ROADMAP.md, Queue 1 items 8 and 9) and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -58,12 +58,12 @@ def check_ported(spec: VariantSpec) -> None:
         raise NotImplementedError(
             f"variant {spec.name}: the shell backend (ollama/DiffRhythm "
             f"pipeline, serve/modes.py, serve/proxy.py) is not ported yet "
-            f"(ROADMAP.md Queue 1 item 10)")
+            f"(ROADMAP.md Queue 1 item 9)")
     if spec.melody == "telemelody" or spec.accompaniment:
         raise NotImplementedError(
             f"variant {spec.name}: the TeleMelody melody and its rendered "
             f"accompaniment (audio/render.py, audio/midi.py, beam.py "
-            f"sample_decode) are not ported yet (ROADMAP.md Queue 1 item 5)")
+            f"sample_decode) are not ported yet (ROADMAP.md Queue 1 item 8)")
 
 
 def canned_response(keyword: str, canned_dir: Optional[str]):

@@ -2,7 +2,8 @@
 
 Usage:
   python -m music_generation_tpu_torch.train --steps 1000 --ckpt-dir ./ckpts \
-      [--tiny] [--durations mas] [--device cpu]
+      [--tiny] [--durations mas] [--decoder hifigan|istft|mb_istft]
+      [--device cpu]
 
 Twin of ``python -m music_generation_tpu.train`` on synthetic batches
 (train.data.synthetic_batch, seeded by the step) with random-init weights.
@@ -10,8 +11,9 @@ Runs on ``cuda`` unless given ``--device``; it never falls back to the CPU.
 ``--durations mas`` aligns each step with monotonic alignment search, which
 on a CUDA device launches the hand-written kernel. Flags of the JAX CLI
 that are not ported yet (--bf16, --data-dir, --packed, --multihost,
---n-model > 1, --log-images, --nsf, --f0-residual, the iSTFT decoders)
-exit with an error that names them.
+--n-model > 1, --log-images, --nsf, --f0-residual) exit with an error that
+names them. ``tools/torch_export_trained_svs.py`` turns a step_<n>.pt
+into the per-singer files ``serve.app --checkpoint-dir`` serves.
 """
 
 import argparse

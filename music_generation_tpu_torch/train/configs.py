@@ -1,39 +1,49 @@
 """CLI -> SVSConfig construction for the trainer.
 
-Twin of music_generation_tpu/train/configs.py. The port trains the default
-configuration only; the other decoders, NSF excitation and the residual F0
+Twin of music_generation_tpu/train/configs.py. The port trains the
+HiFi-GAN, iSTFT and MB-iSTFT decoders; NSF excitation and the residual F0
 head raise NotImplementedError until they are ported.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 from ..models.svs import SVSConfig
 
-#: decoder choices of the JAX trainer; only "hifigan" is ported
+#: decoder choices of the trainer and the server
 DECODERS = ("hifigan", "istft", "mb_istft")
 
 
 def build_svs_config(tiny: bool = False, decoder: str = "hifigan",
                      nsf: bool = False,
                      f0_residual: bool = False) -> SVSConfig:
-    """One SVSConfig for the trainer; raises on invalid combinations and on
-    options not yet ported."""
+    """One SVSConfig for the trainer and the export tool; raises on invalid
+    combinations and on options not yet ported."""
     if decoder not in DECODERS:
         raise ValueError(f"decoder must be one of {DECODERS}, got {decoder!r}")
-    if decoder != "hifigan":
-        raise NotImplementedError(f"--decoder {decoder} is not yet ported")
     if nsf:
         raise NotImplementedError("--nsf is not yet ported")
     if f0_residual:
         raise NotImplementedError("--f0-residual is not yet ported")
-    if tiny:
-        return SVSConfig(
-            inter_channels=16, hidden_channels=16, filter_channels=32,
-            n_heads=2, n_layers=1, spec_channels=65,
-            resblock_kernel_sizes=(3,), resblock_dilation_sizes=((1, 3),),
-            upsample_rates=(4, 4), upsample_initial_channel=32,
-            upsample_kernel_sizes=(8, 8), segment_size=16 * 8, hop_length=16)
-    return SVSConfig()
+    if not tiny:
+        return SVSConfig(decoder_type=decoder)
+    cfg = SVSConfig(
+        inter_channels=16, hidden_channels=16, filter_channels=32,
+        n_heads=2, n_layers=1, spec_channels=65,
+        resblock_kernel_sizes=(3,), resblock_dilation_sizes=((1, 3),),
+        upsample_rates=(4, 4), upsample_initial_channel=32,
+        upsample_kernel_sizes=(8, 8), segment_size=16 * 8, hop_length=16,
+        decoder_type=decoder)
+    # tiny hop 16: istft 4 * 4; mb_istft 2 * 4 * 2
+    if decoder == "istft":
+        return dataclasses.replace(cfg, istft_upsample_rates=(4,),
+                                   istft_upsample_kernel_sizes=(8,))
+    if decoder == "mb_istft":
+        return dataclasses.replace(cfg, mb_upsample_rates=(2,),
+                                   mb_upsample_kernel_sizes=(4,),
+                                   mb_subbands=2)
+    return cfg
 
 
 def tool_shapes(tiny: bool) -> tuple[int, int]:

@@ -366,8 +366,8 @@ def test_variant_served(variant, tmp_path, monkeypatch):
         finally:
             srv.shutdown()
 
-    def free_port_server(service, host, port):
-        srv = make_server(service, "127.0.0.1", 0)
+    def free_port_server(service, host, port, **tls):
+        srv = make_server(service, "127.0.0.1", 0, **tls)
         servers.append((srv, service))
         threading.Thread(target=requests, args=(srv,), daemon=True).start()
         return srv
