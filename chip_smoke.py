@@ -59,14 +59,34 @@ Phases, each fatal on failure (no exception is caught):
               full-width training steps with --durations mas (MAS kernel
               twice per step, the plain version never), ms per warm step
               and peak memory
+ 11. f0 variants  three full-width training steps with --nsf --f0-residual
+              and --durations mas (MAS twice per step, held bit for bit
+              against the plain version on a step's neg_cent; warm ms,
+              peak memory, the excitation's own ms); that generator through
+              save_checkpoint and the export tool (--nsf --f0-residual) into
+              serve.app --checkpoint-dir --nsf --f0-residual, every served
+              tensor equal (exc convs included); four served
+              configurations (--nsf --f0-residual on those weights, --nsf
+              --f0 score, --decoder-bf16, --decoder-bf16 --decoder
+              mb_istft): one text request cold and twice warm, a warm
+              request's stage timings and launches; the NSF ones on their
+              served scores card against CPU: infer_hidden, the
+              excitation's phase against float64 within a derived bound,
+              the decoder fed the CPU's inputs, the voiced masks, a voiced
+              share over one half; under --f0 score log_f0_used equal to
+              the score's pitch; the HiFi-GAN decoder alone in float32,
+              bf16 (held to the relative-MAE bound) and with NSF
 Launch counts are zeroed just before each main path and read just after
 it: phases 3-4 (the served slices), phase 5 (the variants, which align
-nothing: no MAS launch, kernel or plain), phase 8 (training; its count
-is the one the kernels line reports) and each decoder's training steps in
-phase 10. The lyric LMs launch no hand-written
-kernel. All phases run in full float32: TF32 is off for matmuls and cuDNN
-convolutions. The last stdout line is the result JSON; it is printed only
-when every phase passed. Exits non-zero without a CUDA device.
+nothing: no MAS launch, kernel or plain), phase 8 (training), each
+decoder's training steps in phase 10, and phase 11's training steps and
+its served configurations (which align nothing). The kernels line
+reports the launches of phases 8 and 11's training. The lyric LMs launch
+no hand-written kernel. All phases run in full float32 (TF32 is off for
+matmuls and cuDNN convolutions), except phase 11's --decoder-bf16
+decoders, which run in bfloat16. The last stdout line is the result JSON;
+it is printed only when every phase passed. Exits non-zero without a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -1274,13 +1294,18 @@ def phase_checkpoint(device, gen_state, disc_state, init_decoder,
     return row
 
 
-def decoder_train_steps(device, cfg) -> dict:
+def decoder_train_steps(device, cfg, hold_mas: bool = False):
     """DECODER_STEPS full-width GAN steps (B=8, 64 phones, 480 frames,
-    --durations mas) with ``cfg``'s decoder: losses finite, every
-    submodule moved, the MAS kernel twice per step and the plain version
-    never; ms per warm step and peak memory."""
+    --durations mas) with ``cfg``: losses finite, every submodule moved,
+    the MAS kernel twice per step and the plain version never; ms per warm
+    step and peak memory. With ``hold_mas`` the kernel is also held bit for
+    bit against the plain version on the first step's neg_cent, and the
+    trained (generator, discriminator) states are returned beside the
+    row."""
     import torch
-    from music_generation_tpu_torch.ops import maximum_path
+    from music_generation_tpu_torch.ops import (maximum_path,
+                                                maximum_path_torch,
+                                                monotonic_align)
     from music_generation_tpu_torch.train import (TrainConfig, create_states,
                                                   make_train_step,
                                                   synthetic_batch, to_device,
@@ -1293,6 +1318,15 @@ def decoder_train_steps(device, cfg) -> dict:
     before = {f"{tag}.{n}": p.detach().clone()
               for tag, s in (("gen", gen_state), ("disc", disc_state))
               for n, p in s.model.named_parameters()}
+    live = []
+    neg_cent_fn = monotonic_align.mas_neg_cent
+
+    def capture(*args, **kwargs):
+        out = neg_cent_fn(*args, **kwargs)
+        if not live:
+            live.append(tuple(x.clone() for x in out))
+        return out
+
     maximum_path.kernel_launches = 0
     maximum_path.plain_calls = 0
     torch.cuda.synchronize()
@@ -1303,9 +1337,14 @@ def decoder_train_steps(device, cfg) -> dict:
                                           t_phones=phones, t_frames=frames,
                                           seed=i), device)
         torch.cuda.synchronize()
+        if hold_mas and i == 0:
+            monotonic_align.mas_neg_cent = capture
         t0 = time.perf_counter()
-        metrics = step(gen_state, disc_state, batch, generator)
-        torch.cuda.synchronize()
+        try:
+            metrics = step(gen_state, disc_state, batch, generator)
+            torch.cuda.synchronize()
+        finally:
+            monotonic_align.mas_neg_cent = neg_cent_fn
         ms.append((time.perf_counter() - t0) * 1e3)
         values = {k: float(v) for k, v in metrics.items()}
         if not all(np.isfinite(v) for v in values.values()):
@@ -1326,11 +1365,22 @@ def decoder_train_steps(device, cfg) -> dict:
     if still:
         raise AssertionError(f"{cfg.decoder_type}: no parameter of {still} "
                              "moved")
-    return {"cold_ms": ms[0], "warm_ms": ms[1:],
-            "ms_per_warm_step": float(np.median(ms[1:])),
-            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
-            "mas_launches": launches, "mas_plain_calls": plain,
-            "losses_first_last": [losses[0], losses[-1]]}
+    row = {"cold_ms": ms[0], "warm_ms": ms[1:],
+           "ms_per_warm_step": float(np.median(ms[1:])),
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "mas_launches": launches, "mas_plain_calls": plain,
+           "losses_first_last": [losses[0], losses[-1]]}
+    if not hold_mas:
+        return row
+    # the kernel against the plain version on the step's own neg_cent
+    # (these two calls come after the count was read)
+    neg_cent, attn = live[0]
+    if not torch.equal(maximum_path(neg_cent, attn),
+                       maximum_path_torch(neg_cent, attn)):
+        raise AssertionError("maximum_path kernel disagrees with the plain "
+                             "version on a training step's neg_cent")
+    row["live_neg_cent_shape"] = list(neg_cent.shape)
+    return row, (gen_state, disc_state)
 
 
 def phase_decoders(device) -> dict:
@@ -1393,6 +1443,314 @@ def phase_decoders(device) -> dict:
     return rows
 
 
+F0_FLAGS = {             # phase 11's served configurations
+    "nsf_f0_residual": ["--nsf", "--f0-residual"],
+    "nsf_f0_score": ["--nsf", "--f0", "score"],
+    "decoder_bf16": ["--decoder-bf16"],
+    "decoder_bf16_mb_istft": ["--decoder-bf16", "--decoder", "mb_istft"],
+}
+BF16_REL_MAE = 0.15       # bf16 decoder against float32: relative mean
+                          # absolute error (tests/test_bf16_decoder.py)
+F32_UNIT_ROUNDOFF = 2.0 ** -24
+
+
+def served_scores(songs, text: str) -> list:
+    """The scores singer 0's SVS call receives for ``text`` (one
+    synthesize_song, recorded at dispatch_batch)."""
+    svs = songs.synthesizers[0]
+    seen = []
+    dispatch = svs.dispatch_batch
+
+    def record(scores, noise=None):
+        seen.append(list(scores))
+        return dispatch(scores, noise=noise)
+
+    svs.dispatch_batch = record
+    try:
+        songs.synthesize_song(text)
+    finally:
+        del svs.dispatch_batch
+    return [s for batch in seen for s in batch]
+
+
+def phase_bound_cycles(n_samples: int, phase_max: float) -> float:
+    """The most a float32 scan of non-negative terms can err, in cycles.
+    A sum of non-negative terms whose every term passes through at most h
+    roundings errs by at most h * u * S (Higham, Accuracy and Stability of
+    Numerical Algorithms, 2nd ed., section 4.2), u = 2^-24 the unit
+    roundoff and S the sum, here the phase's largest value. torch's CUDA
+    cumsum along the last dim of a [B > 1, N] tensor scans 32-element
+    chunks (5 tree levels) and carries the running total from chunk to
+    chunk, h <= N / 32 + 5; of a [1, N] tensor it takes CUB's tiled scan,
+    whose tiles hold more than 32 elements, h <= N / 32 + 42 with at most
+    32 items per thread and 10 block levels. Each term f0 / sr adds at most
+    3 roundings of its own (expm1, the product by the voiced mask, the
+    division). So the bound is (ceil(N / 32) + 45) * u * S."""
+    return (-(-n_samples // 32) + 45) * F32_UNIT_ROUNDOFF * phase_max
+
+
+def nsf_card_vs_cpu(songs, text: str) -> dict:
+    """The three-part card-vs-CPU check of an NSF server on the scores it
+    serves for ``text`` (durations pinned to the card's prediction, the
+    same prior noise): (a) infer_hidden, the decoder input, within 1e-4
+    relative L2 of the CPU's; (b) the excitation's phase in cycles on the
+    card against a float64 reference from the same log-F0, within
+    phase_bound_cycles, beside the CPU float32's own error; (c)
+    decode_hidden on the card fed the CPU's hidden state and excitation
+    within 1e-4 of the CPU's decode. Also the voiced masks, card and CPU
+    (frames that flip must lie within 1e-3 of the threshold), the voiced
+    share (> 0.5) and the source's RMS (> 0)."""
+    import torch
+    from music_generation_tpu_torch.models.svs import VISinger
+    from music_generation_tpu_torch.models.svs.excitation import (
+        VOICED_LOG_F0_MIN, harmonic_phase)
+    start = time.time()
+    svs = songs.synthesizers[0]
+    model, cfg = svs.model, svs.cfg
+    scores = served_scores(songs, text)
+    max_frames, packed = svs._batch_inputs(scores)
+    args = (packed[0], packed[3, :, 0], packed[1],
+            packed[4].view(torch.float32), packed[2])
+    cpu_model = VISinger(cfg)
+    cpu_model.load_state_dict(state_on_host(model))
+    cpu_model.eval()
+    noise = torch.from_numpy(np.random.RandomState(SEED + 11).randn(
+        len(scores), max_frames, cfg.inter_channels).astype(np.float32))
+    with torch.no_grad():
+        frames = model.infer_hidden(*args, max_frames,
+                                    generator=svs.generator)[2]["frames"]
+        hid_g, len_g, aux_g = model.infer_hidden(
+            *args, max_frames, ph_dur=frames, noise=noise.to(svs.device))
+        hid_c, len_c, aux_c = cpu_model.infer_hidden(
+            *(a.cpu() for a in args), max_frames, ph_dur=frames.cpu(),
+            noise=noise)
+        if not torch.equal(len_g.cpu(), len_c):
+            raise AssertionError(f"mel_len {len_g} != {len_c}")
+        row = {"batch": len(scores), "max_frames": max_frames,
+               "mel_len": len_c.tolist(),
+               "hidden_rel_l2": rel_l2(hid_g, hid_c)}
+        # (b) the phase
+        lf0 = aux_g["log_f0_used"]
+        cycles_g, _ = harmonic_phase(lf0, cfg.hop_length, cfg.sampling_rate)
+        lf0_c = lf0.cpu()
+        f0 = torch.expm1(lf0_c.double().clamp(0.0, 9.0)) \
+            * (lf0_c > VOICED_LOG_F0_MIN)
+        ref = torch.cumsum(torch.repeat_interleave(f0, cfg.hop_length, 1)
+                           / cfg.sampling_rate, dim=1)
+        cycles_c, _ = harmonic_phase(lf0_c, cfg.hop_length,
+                                     cfg.sampling_rate)
+        bound = phase_bound_cycles(ref.shape[1], float(ref.max()))
+        row |= {"phase_samples": ref.shape[1],
+                "phase_max_cycles": float(ref.max()),
+                "phase_err_cycles_card": float(
+                    (cycles_g.cpu().double() - ref).abs().max()),
+                "phase_err_cycles_cpu_f32": float(
+                    (cycles_c.double() - ref).abs().max()),
+                "phase_bound_cycles": bound}
+        # the voiced masks, card and CPU
+        valid = (torch.arange(max_frames)[None] < len_c[:, None])
+        v_g = (lf0_c > VOICED_LOG_F0_MIN) & valid
+        v_c = (aux_c["log_f0_used"] > VOICED_LOG_F0_MIN) & valid
+        flips = v_g != v_c
+        near = (aux_c["log_f0_used"] - VOICED_LOG_F0_MIN).abs() < 1e-3
+        exc_g = aux_g["exc"][..., 0].cpu()
+        samples = torch.repeat_interleave(valid, cfg.hop_length, 1)
+        row |= {"voiced_flips": int(flips.sum()),
+                "voiced_share": float(v_g.sum() / valid.sum()),
+                "exc_rms": float(exc_g[samples].pow(2).mean().sqrt())}
+        # (c) the decoder on the card, fed the CPU's inputs
+        dec_c = cpu_model.decode_hidden(hid_c, aux_c["exc"])
+        dec_g = model.decode_hidden(hid_c.to(svs.device),
+                                    aux_c["exc"].to(svs.device))
+        row["decode_rel_l2"] = rel_l2(dec_g, dec_c)
+    del cpu_model
+    row["seconds"] = time.time() - start
+    bad = [k for k, lim in (("hidden_rel_l2", 1e-4), ("decode_rel_l2", 1e-4))
+           if not row[k] <= lim]
+    if bad or not row["phase_err_cycles_card"] <= bound:
+        raise AssertionError(f"NSF card vs CPU: {bad} {row}")
+    if (flips & ~near).any():
+        raise AssertionError(f"voicing flips away from the threshold: {row}")
+    if not row["voiced_share"] > 0.5 or not row["exc_rms"] > 0.0:
+        raise AssertionError(f"silent NSF source: {row}")
+    return row
+
+
+def score_pitch_check(songs, text: str) -> dict:
+    """Under --f0 score, the served log_f0_used is log1p of the score's
+    note pitch, exactly: equal on voiced frames, 0 at rests and past the
+    end."""
+    import torch
+    from music_generation_tpu_torch.core.masking import feature_mask
+    from music_generation_tpu_torch.models.svs import note_hz_frames
+    svs = songs.synthesizers[0]
+    max_frames, packed = svs._batch_inputs(served_scores(songs, text))
+    with torch.no_grad():
+        _, mel_len, aux = svs.model.infer_hidden(
+            packed[0], packed[3, :, 0], packed[1],
+            packed[4].view(torch.float32), packed[2], max_frames,
+            generator=svs.generator)
+    hz = note_hz_frames(packed[1], aux["frames"], max_frames) \
+        * feature_mask(mel_len, max_frames)[..., 0]
+    used = aux["log_f0_used"]
+    if not torch.equal(used, torch.log1p(hz)) or (used[hz == 0] != 0).any():
+        raise AssertionError("--f0 score: log_f0_used is not the score's "
+                             "pitch")
+    valid = feature_mask(mel_len, max_frames)[..., 0] > 0
+    return {"valid_frames": int(valid.sum()),
+            "rest_frames": int(((hz == 0) & valid).sum())}
+
+
+def decoders_alone(device) -> dict:
+    """The HiFi-GAN decoder alone on hidden [4, 512, 192] (SVSConfig()
+    weights from one seed): float32, decoder_bf16 and with the NSF source
+    (its excitation computed apart); bf16 held to the relative-MAE bound
+    of float32."""
+    import torch
+    from music_generation_tpu_torch.models.svs import SVSConfig, VISinger
+    gen = torch.Generator(device).manual_seed(SEED)
+    hidden = torch.randn(4, 512, SVSConfig().inter_channels, generator=gen,
+                         device=device) * 0.5
+    log_f0 = torch.log1p(100.0 + 300.0 * torch.rand(
+        4, 512, generator=gen, device=device))
+    models = {}
+    for name, cfg in (("f32", SVSConfig()),
+                      ("bf16", SVSConfig(decoder_bf16=True)),
+                      ("nsf", SVSConfig(nsf=True))):
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(SEED)
+            models[name] = VISinger(cfg).to(device).eval()
+    row = {"hidden_shape": list(hidden.shape)}
+    nsf = models["nsf"]
+    with torch.no_grad():
+        exc = nsf.excitation(log_f0)
+        row["f32_ms"] = cuda_ms(lambda: models["f32"].decode_hidden(hidden),
+                                reps=10)
+        row["bf16_ms"] = cuda_ms(
+            lambda: models["bf16"].decode_hidden(hidden), reps=10)
+        row["nsf_ms"] = cuda_ms(lambda: nsf.decode_hidden(hidden, exc),
+                                reps=10)
+        row["excitation_ms"] = cuda_ms(lambda: nsf.excitation(log_f0),
+                                       reps=10)
+        f32 = models["f32"].decode_hidden(hidden)
+        bf16 = models["bf16"].decode_hidden(hidden)
+    if bf16.dtype != torch.float32 or not states_equal(
+            state_on_host(models["f32"]), state_on_host(models["bf16"])):
+        raise AssertionError("the bf16 decoder changed its output dtype or "
+                             "its float32 parameters")
+    row["bf16_rel_mae"] = float((bf16 - f32).abs().mean()
+                                / f32.abs().mean())
+    if not row["bf16_rel_mae"] < BF16_REL_MAE:
+        raise AssertionError(f"bf16 decoder: {row}")
+    return row
+
+
+def phase_f0_variants(device) -> dict:
+    """Phase 11: the SVS F0 and excitation variants at full width.
+    Training with build_svs_config(nsf=True, f0_residual=True), MAS twice
+    per step; that generator through save_checkpoint and the export tool
+    into serve.app --checkpoint-dir --nsf --f0-residual (every tensor equal,
+    exc convs included); the four served configurations of F0_FLAGS, each
+    a text request cold and twice warm, a warm request's stage timings and
+    launches, the NSF ones checked card against CPU; the score pitch; the
+    decoder alone in float32, bf16 and with NSF."""
+    import shutil
+    import torch
+    from music_generation_tpu_torch.core.masking import slice_segments
+    from music_generation_tpu_torch.ops import maximum_path
+    from music_generation_tpu_torch.serve import app
+    from music_generation_tpu_torch.train import (build_svs_config,
+                                                  save_checkpoint)
+    from tools.torch_export_trained_svs import export_svs
+    start = time.time()
+    rows = {}
+    cfg = build_svs_config(nsf=True, f0_residual=True)
+    t0 = time.time()
+    train, (gen_state, disc_state) = decoder_train_steps(device, cfg,
+                                                         hold_mas=True)
+    train["phase_s"] = time.time() - t0
+    # the excitation's own cost inside the step: the source at the batch's
+    # full length, then its training slice
+    log_f0 = torch.log1p(100.0 + 300.0 * torch.rand(
+        TRAIN_BATCH, 480, generator=torch.Generator(device).manual_seed(
+            SEED), device=device))
+    ids = torch.zeros(TRAIN_BATCH, dtype=torch.int32, device=device)
+    with torch.no_grad():
+        train["excitation_ms"] = cuda_ms(lambda: slice_segments(
+            gen_state.model.excitation(log_f0), ids * cfg.hop_length,
+            cfg.segment_size), reps=10)
+    rows["train"] = train
+    log(f"f0 variants phase: {DECODER_STEPS} full-width steps with --nsf "
+        f"--f0-residual (MAS): warm {train['ms_per_warm_step']:.1f} ms per "
+        f"step, excitation {train['excitation_ms']:.4f} ms of it, peak "
+        f"{train['peak_memory_bytes'] / 2 ** 30:.2f} GiB; MAS kernel "
+        f"{train['mas_launches']} launches, plain 0, == plain on the step's "
+        f"neg_cent")
+
+    # serving aligns nothing: no MAS launch, kernel or plain
+    maximum_path.kernel_launches = 0
+    maximum_path.plain_calls = 0
+    served_dir = SCRATCH / "f0" / "served"
+    try:
+        trained = state_on_host(gen_state.model)
+        ckpt = save_checkpoint(str(SCRATCH / "f0" / "train"), gen_state,
+                               disc_state, gen_state.step)
+        del gen_state, disc_state
+        torch.cuda.empty_cache()
+        export_svs(ckpt, str(served_dir), speakers=(0, 1, 2), nsf=True,
+                   f0_residual=True)
+        for name, flags in F0_FLAGS.items():
+            argv = flags + (["--checkpoint-dir", str(served_dir)]
+                            if name == "nsf_f0_residual" else [])
+            argv += ["--device", str(device)]
+            t0 = time.time()
+            args, scfg = app.configure(argv)
+            songs = app.build_songs(args, scfg)
+            torch.cuda.synchronize()
+            row = {"flags": argv[:-2], "build_s": time.time() - t0}
+            if name == "nsf_f0_residual":
+                exc_keys = [k for k in trained if ".exc." in k]
+                for sid, svs in songs.synthesizers.items():
+                    if not states_equal(state_on_host(svs.model), trained):
+                        raise AssertionError(f"served singer {sid} is not "
+                                             "the trained generator")
+                row["served_equal_tensors"] = len(trained)
+                row["exc_tensors"] = len(exc_keys)
+            row["served"] = serve_once(songs, DECODER_TEXT,
+                                       kinds=("cold", "warm", "warm_2"))
+            row["profile"] = profile_request(songs, DECODER_TEXT)
+            if args.nsf:
+                row["card_vs_cpu"] = nsf_card_vs_cpu(songs, DECODER_TEXT)
+            if args.f0 == "score":
+                row["score_pitch"] = score_pitch_check(songs, DECODER_TEXT)
+            del songs
+            torch.cuda.empty_cache()
+            rows[name] = row
+            log(f"f0 variants phase: {' '.join(row['flags'])}: warm "
+                f"{row['served']['warm_s']:.3f} / "
+                f"{row['served']['warm_2_s']:.3f} s (cold "
+                f"{row['served']['cold_s']:.3f} s), melody "
+                f"{row['profile']['melody_s']:.3f} s, svs "
+                f"{row['profile']['svs_s']:.3f} s, "
+                f"{row['profile']['kernel_launches']} launches, busy "
+                f"{row['profile']['device_busy_share']:.3f}"
+                + (f"; card vs CPU {json.dumps(row['card_vs_cpu'])}"
+                   if "card_vs_cpu" in row else "")
+                + (f"; score pitch {json.dumps(row['score_pitch'])}"
+                   if "score_pitch" in row else ""))
+    finally:
+        shutil.rmtree(SCRATCH, ignore_errors=True)
+    if maximum_path.kernel_launches or maximum_path.plain_calls:
+        raise AssertionError(f"the served variants ran MAS: kernel "
+                             f"{maximum_path.kernel_launches}, plain "
+                             f"{maximum_path.plain_calls}")
+    rows["decoder_alone"] = decoders_alone(device)
+    rows["phase_s"] = time.time() - start
+    log(f"f0 variants phase ({rows['phase_s']:.1f} s): decoder alone "
+        + json.dumps(rows["decoder_alone"]))
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1420,10 +1778,15 @@ def main() -> int:
     del trained
     torch.cuda.empty_cache()
     decoders = phase_decoders(device)
+    torch.cuda.empty_cache()
+    f0_variants = phase_f0_variants(device)
     record = earlier.pop("record")
-    record["launches"] = train["mas_launches"]
+    record["launches"] = (train["mas_launches"]
+                          + f0_variants["train"]["mas_launches"])
     log(json.dumps(earlier | {"train": train, "checkpoint": checkpoint,
-                              "decoders": decoders}, ensure_ascii=False))
+                              "decoders": decoders,
+                              "f0_variants": f0_variants},
+                   ensure_ascii=False))
     log(json.dumps({"kernels": [record]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,7 +17,8 @@ Reference keys the mapping does not reach are logged; parameters the file
 lacks are left out of the result, so compat.checkpoints.load_params keeps
 them at their init (the reference's tolerant load_checkpoint,
 VISinger/utils/utils.py:33-58). The non-AE ``models.py`` variant is not
-ported (its file has no spec_decoder) and is refused.
+ported (its file has no spec_decoder) and is refused, and so is an ``nsf``
+config: the reference has no excitation convs.
 """
 
 from __future__ import annotations
@@ -238,6 +239,10 @@ def visinger_state_dict_from_torch(state_dict, cfg: SVSConfig) -> dict:
     if cfg.decoder_type != "hifigan":
         raise ValueError("reference checkpoints carry the HiFi-GAN decoder; "
                          f"got decoder_type={cfg.decoder_type!r}")
+    if cfg.nsf:
+        raise ValueError("reference checkpoints have no NSF excitation "
+                         "convs (decoder.exc.*): import them into a config "
+                         "without nsf")
     if not any(k.startswith("spec_decoder.") for k in state_dict):
         raise NotImplementedError(
             "a checkpoint without spec_decoder is the reference's non-AE "

@@ -41,6 +41,17 @@ def same_pad(kernel_size: int, dilation: int = 1) -> tuple[int, int]:
     return (span // 2, span - span // 2)
 
 
+def _at_dtype(weight: torch.Tensor, bias: Optional[torch.Tensor],
+              dtype: torch.dtype):
+    """A conv's effective weight and bias in its input's dtype. Parameters
+    stay float32 and are cast at use, as flax's Conv1d(dtype=None) casts
+    them (VISinger's decoder_bf16 feeds the decoder bfloat16); the weight
+    norm is taken in float32 before the cast. No-op for float32 input."""
+    if weight.dtype == dtype:
+        return weight, bias
+    return weight.to(dtype), None if bias is None else bias.to(dtype)
+
+
 def lecun_normal_(w: torch.Tensor, fan_in: int, scale: float = 1.0):
     return nn.init.trunc_normal_(w, std=(scale / fan_in) ** 0.5)
 
@@ -81,8 +92,8 @@ class Conv1d(nn.Module):
         if left != right:
             x = F.pad(x, (left, right))
             left = 0
-        return F.conv1d(x, self.effective_weight(), self.bias,
-                        stride=self.stride, padding=left,
+        w, b = _at_dtype(self.effective_weight(), self.bias, x.dtype)
+        return F.conv1d(x, w, b, stride=self.stride, padding=left,
                         dilation=self.dilation, groups=self.groups)
 
 
@@ -121,8 +132,9 @@ class ConvTranspose1d(nn.Module):
         return self.weight * (self.g / norm.clamp_min(1e-12))[None, :, None]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv_transpose1d(x, self.effective_weight(), self.bias,
-                                  stride=self.stride, padding=self.padding)
+        w, b = _at_dtype(self.effective_weight(), self.bias, x.dtype)
+        return F.conv_transpose1d(x, w, b, stride=self.stride,
+                                  padding=self.padding)
 
 
 def LayerNorm1d(channels: int) -> nn.LayerNorm:

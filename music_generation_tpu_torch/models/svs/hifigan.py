@@ -11,7 +11,8 @@ channels-last.
 
 from __future__ import annotations
 
-from typing import Sequence
+import math
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -74,9 +75,12 @@ class HiFiGANTrunk(nn.Module):
         self.up = nn.ModuleList()
         self.res = nn.ModuleList()
         ch = upsample_initial_channel
+        self.upsample_rates = tuple(upsample_rates)
+        self.stage_channels = []
         for i, (u, k) in enumerate(zip(upsample_rates,
                                        upsample_kernel_sizes)):
             nxt = upsample_initial_channel // (2 ** (i + 1))
+            self.stage_channels.append(nxt)
             self.up.append(ConvTranspose1d(ch, nxt, k, u))
             self.res.append(nn.ModuleList(
                 res_cls(nxt, rk, tuple(rd)) for rk, rd in
@@ -84,10 +88,16 @@ class HiFiGANTrunk(nn.Module):
             ch = nxt
         self.out_channels = ch
 
-    def trunk(self, x: torch.Tensor) -> torch.Tensor:
+    def trunk(self, x: torch.Tensor,
+              inject: Optional[Callable[[int, torch.Tensor], torch.Tensor]]
+              = None) -> torch.Tensor:
+        """``inject(i, x)``, when given, replaces the activation after
+        upsample stage ``i`` (the NSF source of Generator)."""
         x = self.conv_pre(x.transpose(1, 2))
-        for up, blocks in zip(self.up, self.res):
+        for i, (up, blocks) in enumerate(zip(self.up, self.res)):
             x = up(F.leaky_relu(x, LRELU_SLOPE))
+            if inject is not None:
+                x = inject(i, x)
             xs = None
             for block in blocks:
                 y = block(x)
@@ -97,15 +107,45 @@ class HiFiGANTrunk(nn.Module):
 
 
 class Generator(HiFiGANTrunk):
-    def __init__(self, in_channels: int, *args, **kwargs):
+    """The HiFi-GAN generator. With ``nsf`` it also takes the harmonic
+    source ``exc`` [B, T_frames * prod(rates), 1] (models/svs/excitation.py)
+    and adds, after upsample stage i, a strided conv of it (``exc.{i}``:
+    kernel max(2 * stride, 3), stride prod(rates) / (rate so far), so its
+    output has exactly the stage's length). Without ``nsf`` the generator
+    holds no such conv, so its parameters are the plain generator's."""
+
+    def __init__(self, in_channels: int, *args, nsf: bool = False, **kwargs):
         super().__init__(in_channels, *args, **kwargs)
         # small-init output projection (1e-4 x the fan-in scale), as in the
         # JAX package: random-init audio starts in tanh's linear region
         self.conv_post = Conv1d(self.out_channels, 1, 7, bias=False,
                                 init_scale=1e-4)
+        self.exc = None
+        if nsf:
+            total_up = math.prod(self.upsample_rates)
+            self.exc = nn.ModuleList()
+            rate = 1
+            for u, ch in zip(self.upsample_rates, self.stage_channels):
+                rate *= u
+                stride = total_up // rate
+                self.exc.append(Conv1d(1, ch, max(2 * stride, 3),
+                                       stride=stride))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.tanh(self.conv_post(self.trunk(x))).transpose(1, 2)
+    def forward(self, x: torch.Tensor,
+                exc: Optional[torch.Tensor] = None) -> torch.Tensor:
+        inject = None
+        if exc is not None:
+            if self.exc is None:
+                raise ValueError("an excitation was passed to a generator "
+                                 "built without nsf")
+            src = exc.transpose(1, 2)                      # [B, 1, S]
+
+            def inject(i, h):
+                return h + self.exc[i](src.to(h.dtype))
+        elif self.exc is not None:
+            raise ValueError("an nsf generator needs its excitation")
+        return torch.tanh(self.conv_post(self.trunk(x, inject))
+                          ).transpose(1, 2)
 
 
 class DiscriminatorP(nn.Module):

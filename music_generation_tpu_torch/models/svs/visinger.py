@@ -1,19 +1,20 @@
 """VISinger: VITS-derived singing-voice synthesizer.
 
 Twin of music_generation_tpu/models/svs/visinger.py for the AE variant
-with F0 from the F0 predictor and the HiFi-GAN, iSTFT or MB-iSTFT
-decoder. Layout is channels-last [B, T, C] with [B, T, 1] masks, as in the
-JAX package, so the two compare like with like.
+with the HiFi-GAN (optionally with the NSF harmonic source), iSTFT or
+MB-iSTFT decoder. Layout is channels-last [B, T, C] with [B, T, 1] masks,
+as in the JAX package, so the two compare like with like.
 
-Ported: SVSConfig, f0_to_coarse, TextEncoder, F0Predictor,
-MelPredictNetwork, FramePriorNetwork, TextPostNet, PosteriorEncoder,
-SpecDecoder, VISinger.infer / infer_hidden / decode_hidden and the training
-forward (VISinger.forward, with dataset or MAS durations). Dropout is
-explicit: every forward takes ``deterministic`` (default True) and a
-``torch.Generator``, as the flax modules take ``deterministic`` and a
-dropout rng; the module's train/eval mode plays no part. The non-AE
-variant, NSF excitation, decoder_bf16 and f0_mode="score" / f0_residual
-come with later parts of the port.
+Ported: SVSConfig, f0_to_coarse, note_hz_frames, TextEncoder, F0Predictor
+(absolute or residual head), MelPredictNetwork, FramePriorNetwork,
+TextPostNet, PosteriorEncoder, SpecDecoder, VISinger.infer / infer_hidden /
+decode_hidden (F0 from the predictor or the score, the NSF source, the
+decoder in bfloat16) and the training forward (VISinger.forward, with
+dataset or MAS durations). Dropout is explicit: every forward takes
+``deterministic`` (default True) and a ``torch.Generator``, as the flax
+modules take ``deterministic`` and a dropout rng; the module's train/eval
+mode plays no part. The non-AE variant comes with a later part of the
+port.
 """
 
 from __future__ import annotations
@@ -30,10 +31,11 @@ from ...core.attention import TransformerEncoder
 from ...core.flows import ResidualCouplingBlock
 from ...core.layers import Conv1d, conv_ntc
 from ...core.masking import (expand_by_durations, feature_mask,
-                             rand_slice_segments)
+                             rand_slice_segments, slice_segments)
 from ...core.wavenet import WaveNet
 from ...ops import mas_duration_targets
 from ..duration import DurationPredictor
+from .excitation import harmonic_excitation
 from .hifigan import Generator
 from .istft import ISTFTGenerator, MBISTFTGenerator
 
@@ -51,6 +53,19 @@ def f0_to_coarse(f0: torch.Tensor) -> torch.Tensor:
         + 1.0, mel)
     scaled = torch.clamp(scaled, 1.0, _F0_BIN - 1)
     return torch.floor(scaled + 0.5).to(torch.int64)
+
+
+def note_hz_frames(note_ids: torch.Tensor, frames: torch.Tensor,
+                   max_frames: int) -> torch.Tensor:
+    """Per-frame Hz of the score's MIDI notes (0 at rests, note id 0),
+    length-regulated with the same per-phone frame counts as the text
+    hidden: the pitch base of f0_mode="score" and of the residual F0 head.
+    [B, T_phones] int note ids -> [B, max_frames] float32."""
+    hz = torch.where(note_ids > 0,
+                     440.0 * torch.exp2((note_ids.float() - 69.0) / 12.0),
+                     0.0)
+    hz_fr, _ = expand_by_durations(hz[..., None], frames, max_frames)
+    return hz_fr[..., 0]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,6 +104,21 @@ class SVSConfig:
     sampling_rate: int = 22050
     hop_length: int = 256
     frame_seconds: float = 0.0116     # duration->frames divisor
+    # run the vocoder decoder (any family) in bfloat16 at inference; the
+    # parameters stay float32 and the output comes back float32
+    decoder_bf16: bool = False
+    # NSF harmonic excitation (models/svs/excitation.py): the HiFi-GAN
+    # decoder also gets a sample-rate sine source at the frame F0 (the
+    # batch's log_f0 in training, log_f0_used at inference); hifigan only
+    nsf: bool = False
+    # inference F0 source: "predict" (the F0 predictor drives the F0
+    # embedding and the NSF source) or "score" (both from the score's MIDI
+    # notes); training always takes the batch's F0
+    f0_mode: str = "predict"
+    # residual F0 head: the zero-initialised predictor output is a
+    # deviation added to the note's frame log1p-F0, in training and at
+    # inference; the parameters are those of the absolute head
+    f0_residual: bool = False
 
     @property
     def segment_frames(self) -> int:
@@ -124,12 +154,17 @@ class TextEncoder(nn.Module):
 
 
 class F0Predictor(nn.Module):
-    def __init__(self, cfg: SVSConfig, n_layers: int = 6):
+    """Frame log1p-F0 from the frame hidden; ``zero_init`` starts the
+    output conv at zero (the residual head starts on the note pitch)."""
+
+    def __init__(self, cfg: SVSConfig, n_layers: int = 6,
+                 zero_init: bool = False):
         super().__init__()
         self.encoder = TransformerEncoder(
             cfg.hidden_channels, cfg.filter_channels, cfg.n_heads, n_layers,
             cfg.kernel_size, cfg.p_dropout)
-        self.out = Conv1d(cfg.hidden_channels, 1, 1)
+        self.out = Conv1d(cfg.hidden_channels, 1, 1,
+                          init_scale=0.0 if zero_init else 1.0)
 
     def forward(self, x, mask, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None):
@@ -181,21 +216,25 @@ class TextPostNet(nn.Module):
         h = cfg.hidden_channels
         self.inter = cfg.inter_channels
         self.position_embeddings = _embedding(max_positions, h)
-        self.f0_predictor = F0Predictor(cfg)
+        self.f0_predictor = F0Predictor(cfg, zero_init=cfg.f0_residual)
         self.f0_emb = _embedding(300, h)
         self.mel_predict_net = MelPredictNetwork(cfg, n_mels)
         self.frame_prior_net = FramePriorNetwork(n_mels, h, h)
         self.proj = Conv1d(h, 2 * cfg.inter_channels, 1)
 
     def forward(self, x, mask, f0_score: Optional[torch.Tensor] = None,
+                lf0_base: Optional[torch.Tensor] = None,
                 deterministic: bool = True,
                 generator: Optional[torch.Generator] = None):
         """``f0_score`` [B, T] int coarse F0 (training: the batch's ground
-        truth) drives the F0 embedding; None takes it from the predicted
-        log-F0."""
+        truth; f0_mode="score": the note pitch) drives the F0 embedding;
+        None takes it from the predicted log-F0. ``lf0_base`` [B, T] (the
+        residual head) is added to the predictor's output."""
         t = x.shape[1]
         x_emb = (x + self.position_embeddings.weight[None, :t]) * mask
         log_f0 = self.f0_predictor(x_emb, mask, deterministic, generator)
+        if lf0_base is not None:
+            log_f0 = (log_f0 + lf0_base) * mask[..., 0]
         if f0_score is None:
             f0_score = f0_to_coarse(torch.exp(log_f0) - 1.0)
         f0_emb = self.f0_emb(f0_score) * mask
@@ -247,7 +286,8 @@ class SpecDecoder(nn.Module):
 
 class VISinger(nn.Module):
     """AE variant with the HiFi-GAN, iSTFT or MB-iSTFT decoder
-    (``cfg.decoder_type``). Methods:
+    (``cfg.decoder_type``; ``cfg.nsf`` gives the HiFi-GAN decoder the
+    harmonic source). Methods:
       - infer(...): score -> waveform
       - forward(...): the training forward (pieces for the GAN/VAE losses)
     """
@@ -286,7 +326,11 @@ class VISinger(nn.Module):
             assert c.decoder_type == "hifigan", c.decoder_type
             self.decoder = Generator(
                 *trunk, tuple(c.upsample_rates), c.upsample_initial_channel,
-                tuple(c.upsample_kernel_sizes))
+                tuple(c.upsample_kernel_sizes), nsf=c.nsf)
+        if c.nsf:
+            assert c.decoder_type == "hifigan", (
+                "NSF excitation is wired for the hifigan decoder only")
+        assert c.f0_mode in ("predict", "score"), c.f0_mode
         self.spec_decoder = SpecDecoder(c)
         self.spec_proj = Conv1d(c.spec_channels, c.inter_channels, 1)
 
@@ -307,7 +351,7 @@ class VISinger(nn.Module):
             phones, x_lengths, note_ids, note_durations, shengdiao,
             max_frames, noise_scale=noise_scale, ph_dur=ph_dur, noise=noise,
             generator=generator)
-        return self.decode_hidden(hidden), mel_len, aux
+        return self.decode_hidden(hidden, aux.get("exc")), mel_len, aux
 
     def infer_hidden(self, phones, x_lengths, note_ids, note_durations,
                      shengdiao, max_frames: int, noise_scale: float = 1.0,
@@ -315,7 +359,10 @@ class VISinger(nn.Module):
                      noise: Optional[torch.Tensor] = None,
                      generator: Optional[torch.Generator] = None):
         """infer() up to (excluding) the vocoder: the decoder input
-        [B, max_frames, inter], mel_len [B] and the aux dict."""
+        [B, max_frames, inter], mel_len [B] and the aux dict: log_f0 (the
+        predictor's), log_f0_used (the F0 the decoder's source follows),
+        mel_predict, spec_predict, frames, and with ``cfg.nsf`` exc, the
+        full-length harmonic source [B, max_frames * hop, 1]."""
         c = self.cfg
         x_mask = feature_mask(x_lengths, phones.shape[1])
         h_text = self.text_encoder(phones, note_ids, note_durations,
@@ -333,7 +380,19 @@ class VISinger(nn.Module):
         h_lr, mel_len = expand_by_durations(h_text, frames, max_frames)
         mel_len = torch.clamp(mel_len, max=max_frames)
         y_mask = feature_mask(mel_len, max_frames)
-        m_p, logs_p, log_f0, mel_predict = self.text_post_net(h_lr, y_mask)
+        f0_coarse = lf0_score = lf0_base = None
+        if c.f0_mode == "score" or c.f0_residual:
+            # frame F0 from the score's notes (0 Hz at rests), expanded
+            # with the same frame counts as the text hidden
+            hz_fr = note_hz_frames(note_ids, frames,
+                                   max_frames) * y_mask[..., 0]
+            if c.f0_mode == "score":
+                lf0_score = torch.log1p(hz_fr)
+                f0_coarse = f0_to_coarse(hz_fr)
+            if c.f0_residual:
+                lf0_base = torch.log1p(hz_fr)
+        m_p, logs_p, log_f0, mel_predict = self.text_post_net(
+            h_lr, y_mask, f0_score=f0_coarse, lf0_base=lf0_base)
         if noise is None:
             noise = torch.randn(m_p.shape, generator=generator,
                                 device=m_p.device, dtype=m_p.dtype)
@@ -341,14 +400,33 @@ class VISinger(nn.Module):
         z = self.spec_flow(z_p, y_mask, reverse=True)
         spec_predict = self.spec_decoder(z, y_mask)
         hidden = conv_ntc(self.spec_proj, spec_predict) * y_mask
-        aux.update(log_f0=log_f0, log_f0_used=log_f0 * y_mask[..., 0],
+        lf0_used = (lf0_score if lf0_score is not None
+                    else log_f0 * y_mask[..., 0])
+        aux.update(log_f0=log_f0, log_f0_used=lf0_used,
                    mel_predict=mel_predict, spec_predict=spec_predict,
                    frames=frames)
+        if c.nsf:
+            # full length, so a slice or window of it keeps its phase
+            aux["exc"] = self.excitation(lf0_used)
         return hidden, mel_len, aux
 
-    def decode_hidden(self, hidden: torch.Tensor) -> torch.Tensor:
-        """Vocoder decoder only (pairs with infer_hidden)."""
-        return self.decoder(hidden)
+    def excitation(self, log_f0: torch.Tensor) -> torch.Tensor:
+        """Frame log1p-F0 [B, T] -> NSF sine source [B, T*hop, 1]."""
+        return harmonic_excitation(log_f0, self.cfg.hop_length,
+                                   self.cfg.sampling_rate)
+
+    def decode_hidden(self, hidden: torch.Tensor,
+                      exc: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Vocoder decoder only (pairs with infer_hidden; ``exc`` is its
+        aux["exc"] under ``cfg.nsf``). With ``cfg.decoder_bf16`` the
+        decoder runs in bfloat16 and its output comes back float32: the
+        hidden state is cast here, and each conv casts its float32
+        effective weight at use (core.layers), so the module and its
+        state_dict stay float32."""
+        kw = {} if exc is None else {"exc": exc}
+        if self.cfg.decoder_bf16:
+            return self.decoder(hidden.to(torch.bfloat16), **kw).float()
+        return self.decoder(hidden, **kw)
 
     def _posterior(self, spec, y_lengths, noise=None, generator=None):
         """Posterior sample and its flow image: (z, m_q, logs_q, y_mask,
@@ -385,13 +463,16 @@ class VISinger(nn.Module):
     def forward(self, phones, x_lengths, spec, y_lengths, note_ids,
                 note_durations, f0_score, phone_durations, shengdiao,
                 deterministic: bool = False, use_mas: bool = False, *,
+                log_f0: Optional[torch.Tensor] = None,
                 noise: Optional[torch.Tensor] = None,
                 noise_rev: Optional[torch.Tensor] = None,
                 slice_u: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> dict:
         """Training forward (the JAX package's VISinger.__call__).
 
-        Batch tensors as train.data.BATCH_KEYS gives them. With ``use_mas``
+        Batch tensors as train.data.BATCH_KEYS gives them; ``log_f0`` is
+        the batch's frame log-F0, which drives the NSF source (needed with
+        ``cfg.nsf``; never the predicted F0). With ``use_mas``
         the durations that drive the length regulator and the duration loss
         come from monotonic alignment search of the posterior against the
         token-level prior (detached; CUDA tensors launch the MAS kernel),
@@ -418,9 +499,17 @@ class VISinger(nn.Module):
                 z_p.detach(), m_tok, logs_tok, x_mask, y_mask)
 
         h_lr, _ = expand_by_durations(h_text, phone_durations, max_frames)
-        m_p, logs_p, log_f0, mel_predict = self.text_post_net(
-            h_lr, y_mask, f0_score=f0_score, deterministic=deterministic,
-            generator=generator)
+        lf0_base = None
+        if c.f0_residual:
+            # the head trains against (batch lf0 - note lf0), the notes
+            # expanded by the durations that drove the length regulator
+            lf0_base = torch.log1p(note_hz_frames(
+                note_ids, phone_durations, max_frames)) * y_mask[..., 0]
+        # the predicted F0 stays apart from the batch's log_f0, which alone
+        # drives the NSF source below
+        m_p, logs_p, log_f0_pred, mel_predict = self.text_post_net(
+            h_lr, y_mask, f0_score=f0_score, lf0_base=lf0_base,
+            deterministic=deterministic, generator=generator)
 
         if noise_rev is None:
             noise_rev = torch.randn(m_p.shape, generator=generator,
@@ -433,8 +522,15 @@ class VISinger(nn.Module):
         z_slice, ids_slice = rand_slice_segments(
             dec_input, y_lengths, c.segment_frames, u=slice_u,
             generator=generator)
+        exc = None
+        if c.nsf:
+            if log_f0 is None:
+                raise ValueError("cfg.nsf training needs the batch's log_f0")
+            exc = slice_segments(self.excitation(log_f0),
+                                 ids_slice * c.hop_length, c.segment_size)
         return {
-            "audio": self.decoder(z_slice),
+            "audio": self.decoder(z_slice) if exc is None
+            else self.decoder(z_slice, exc),
             "duration_fraction": duration_fraction,
             # the durations that drove the length regulator (the batch's,
             # or the in-step MAS targets): the duration loss's targets
@@ -443,7 +539,7 @@ class VISinger(nn.Module):
             "x_mask": x_mask, "y_mask": y_mask,
             "z": z, "z_p": z_p, "m_p": m_p, "logs_p": logs_p,
             "m_q": m_q, "logs_q": logs_q,
-            "log_f0": log_f0,
+            "log_f0": log_f0_pred,
             "mel_predict": mel_predict,
             "spec_predict": spec_predict,
             "z_hat": z_hat,

@@ -301,17 +301,23 @@ def build_default_song_synthesizer(tiny: bool = False, n_speakers: int = 3,
 
 def build_svs_synthesizers(tiny: bool = False, n_speakers: int = 3,
                            seed: int = 0, device=None,
-                           decoder: str = "hifigan"
+                           decoder: str = "hifigan", nsf: bool = False,
+                           f0_mode: str = "predict",
+                           f0_residual: bool = False,
+                           decoder_bf16: bool = False
                            ) -> dict[int, SVSSynthesizer]:
     """One random-initialised SVSSynthesizer per speaker (speaker i from
     ``seed + i``), sharing one score frontend, on ``device`` (default
-    cuda), with the ``decoder`` vocoder family (hifigan, istft or
-    mb_istft: serve.app --decoder, which must match how checkpoints were
-    trained)."""
+    cuda). The SVS options are serve.app's flags: ``decoder`` (hifigan,
+    istft or mb_istft), ``nsf`` and ``f0_residual`` must match how the
+    checkpoints were trained; ``f0_mode`` ("predict" or "score") and
+    ``decoder_bf16`` are inference choices over the same parameters."""
     device = resolve_device(device)
     # the tiny SVS config does not depend on the vocabulary
     scfg = dataclasses.replace(tiny_configs(0)[1] if tiny else SVSConfig(),
-                               decoder_type=decoder)
+                               decoder_type=decoder, nsf=nsf,
+                               f0_mode=f0_mode, f0_residual=f0_residual,
+                               decoder_bf16=decoder_bf16)
     frontend = ScoreFrontend()
     return {i: SVSSynthesizer(scfg, seed=seed + i, frontend=frontend,
                               device=device)

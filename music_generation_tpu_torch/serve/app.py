@@ -16,7 +16,8 @@ wire contract as the reference controllers:
 
 Run: python -m music_generation_tpu_torch.serve.app --port 5005
      [--variant svs_v6_multispeaker|svs_v5|svs_v5_multispeaker|melody_v2]
-     [--decoder hifigan|istft|mb_istft] [--checkpoint-dir DIR]
+     [--decoder hifigan|istft|mb_istft] [--nsf] [--f0 predict|score]
+     [--f0-residual] [--decoder-bf16] [--checkpoint-dir DIR]
      [--lyric-model t5|gpt2] [--cert-file PEM [--key-file PEM]] [--tiny]
      [--device cpu]
 --checkpoint-dir (or the config's checkpoint_dir) loads a pipeline
@@ -305,6 +306,24 @@ def configure(argv=None):
                         choices=["hifigan", "istft", "mb_istft"],
                         help="SVS vocoder decoder family the checkpoints "
                              "were trained with (train --decoder)")
+    parser.add_argument("--nsf", action="store_true",
+                        help="SVS checkpoints were trained with `train "
+                             "--nsf` (harmonic-excitation vocoder; the "
+                             "model config must match the params)")
+    parser.add_argument("--decoder-bf16", action="store_true",
+                        help="run the vocoder decoder in bfloat16 (float32 "
+                             "params, float32 output; deviation bounded as "
+                             "in tests/test_bf16_decoder.py)")
+    parser.add_argument("--f0", default="predict",
+                        choices=["predict", "score"],
+                        help="inference F0 source: 'predict' = the trained "
+                             "F0Predictor (reference parity); 'score' = "
+                             "frame F0 derived from the score's MIDI notes "
+                             "(in tune by construction; SVSConfig.f0_mode)")
+    parser.add_argument("--f0-residual", action="store_true",
+                        help="checkpoints were trained with train "
+                             "--f0-residual (the F0 head is a deviation "
+                             "around the note pitch; SVSConfig.f0_residual)")
     parser.add_argument("--checkpoint-dir", default=None,
                         help="pipeline checkpoints to serve (svs_<id>.pt, "
                              "melody_*.pt: compat.save_pipeline, "
@@ -320,6 +339,9 @@ def configure(argv=None):
                         help="torch device the models run on (default cuda; "
                              "raises when no GPU is present)")
     args = parser.parse_args(argv)
+    if args.nsf and args.decoder != "hifigan":
+        # NSF excitation is wired into the HiFi-GAN decoder only
+        parser.error("--nsf requires --decoder hifigan")
     spec = VARIANTS[args.variant]
     try:
         check_ported(spec)
@@ -349,14 +371,17 @@ def configure(argv=None):
 
 def build_songs(args, cfg: ServiceConfig, seed: int = 0):
     """The song pipeline main() serves: the variant's melody generator
-    around one SVS model per speaker with the --decoder vocoder, on
-    --device, from ``seed``; then the checkpoint dir's weights, when the
-    config names one."""
+    around one SVS model per speaker with the SVS flags (--decoder, --nsf,
+    --f0, --f0-residual, --decoder-bf16), on --device, from ``seed``; then
+    the checkpoint dir's weights, when the config names one."""
     from ..pipeline.synthesis import build_svs_synthesizers
     songs = variant_song_synthesizer(
         VARIANTS[args.variant],
         build_svs_synthesizers(cfg.tiny, cfg.n_speakers, seed=seed,
-                               device=args.device, decoder=args.decoder),
+                               device=args.device, decoder=args.decoder,
+                               nsf=args.nsf, f0_mode=args.f0,
+                               f0_residual=args.f0_residual,
+                               decoder_bf16=args.decoder_bf16),
         tiny=cfg.tiny, seed=seed, device=args.device)
     if cfg.checkpoint_dir:
         from ..compat import load_pipeline
@@ -370,9 +395,11 @@ def build_songs(args, cfg: ServiceConfig, seed: int = 0):
 def main(argv=None):
     args, cfg = configure(argv)
     logger = make_logger(cfg)
-    logger.info("loading models (variant=%s, decoder=%s, tiny=%s, lyric "
-                "model=%s, device=%s)...", args.variant, args.decoder,
-                cfg.tiny, args.lyric_model, args.device)
+    logger.info("loading models (variant=%s, decoder=%s, nsf=%s, f0=%s, "
+                "f0_residual=%s, decoder_bf16=%s, tiny=%s, lyric model=%s, "
+                "device=%s)...", args.variant, args.decoder, args.nsf,
+                args.f0, args.f0_residual, args.decoder_bf16, cfg.tiny,
+                args.lyric_model, args.device)
     import torch
     # full float32, the precision the port is held to against the JAX
     # package (cuDNN would otherwise run the convolutions in TF32)

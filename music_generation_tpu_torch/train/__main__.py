@@ -3,7 +3,7 @@
 Usage:
   python -m music_generation_tpu_torch.train --steps 1000 --ckpt-dir ./ckpts \
       [--tiny] [--durations mas] [--decoder hifigan|istft|mb_istft]
-      [--device cpu]
+      [--nsf] [--f0-residual] [--device cpu]
 
 Twin of ``python -m music_generation_tpu.train`` on synthetic batches
 (train.data.synthetic_batch, seeded by the step) with random-init weights.
@@ -11,9 +11,9 @@ Runs on ``cuda`` unless given ``--device``; it never falls back to the CPU.
 ``--durations mas`` aligns each step with monotonic alignment search, which
 on a CUDA device launches the hand-written kernel. Flags of the JAX CLI
 that are not ported yet (--bf16, --data-dir, --packed, --multihost,
---n-model > 1, --log-images, --nsf, --f0-residual) exit with an error that
-names them. ``tools/torch_export_trained_svs.py`` turns a step_<n>.pt
-into the per-singer files ``serve.app --checkpoint-dir`` serves.
+--n-model > 1, --log-images) exit with an error that names them.
+``tools/torch_export_trained_svs.py`` turns a step_<n>.pt into the
+per-singer files ``serve.app --checkpoint-dir`` serves.
 """
 
 import argparse
@@ -58,8 +58,16 @@ def _parser() -> argparse.ArgumentParser:
                    help="linear LR warmup steps (0 disables)")
     p.add_argument("--decoder", default="hifigan",
                    choices=["hifigan", "istft", "mb_istft"])
+    p.add_argument("--nsf", action="store_true",
+                   help="NSF harmonic excitation: condition the vocoder on "
+                        "a sample-rate sine source at the batch's F0 "
+                        "(models/svs/excitation.py; --decoder hifigan only)")
+    p.add_argument("--f0-residual", action="store_true",
+                   help="residual F0 head: the zero-initialised predictor "
+                        "output is a deviation added to the score note's "
+                        "log-F0 (SVSConfig.f0_residual)")
     # flags of the JAX CLI that the port does not implement yet
-    for flag in ("bf16", "log-images", "nsf", "f0-residual", "multihost"):
+    for flag in ("bf16", "log-images", "multihost"):
         p.add_argument(f"--{flag}", action="store_true",
                        help="not yet ported")
     for flag in ("data-dir", "packed", "coordinator"):
@@ -95,7 +103,7 @@ def main(argv=None):
     try:
         svs_cfg = build_svs_config(tiny=args.tiny, decoder=args.decoder,
                                    nsf=args.nsf, f0_residual=args.f0_residual)
-    except NotImplementedError as e:
+    except ValueError as e:
         p.error(str(e))
     device = resolve_device(args.device)
     t_phones, t_frames = tool_shapes(args.tiny)

@@ -189,12 +189,14 @@ def gen_forward(gen: VISinger, batch: dict, train_cfg: TrainConfig,
                 deterministic: bool = False,
                 generator: Optional[torch.Generator] = None, **draws) -> dict:
     """The training forward on a batch of tensors (``draws``: the noise,
-    noise_rev and slice_u of VISinger.forward)."""
+    noise_rev and slice_u of VISinger.forward). The batch's log_f0 drives
+    the NSF source of an ``nsf`` generator."""
     return gen(batch["phones"], batch["x_lengths"], batch["spec"],
                batch["y_lengths"], batch["note_ids"], batch["note_durations"],
                batch["f0_score"], batch["phone_durations"],
                batch["shengdiao"], deterministic=deterministic,
-               use_mas=train_cfg.use_mas, generator=generator, **draws)
+               use_mas=train_cfg.use_mas, log_f0=batch["log_f0"],
+               generator=generator, **draws)
 
 
 def slice_real_audio(audio: torch.Tensor, ids_slice: torch.Tensor,

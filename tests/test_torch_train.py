@@ -457,8 +457,7 @@ def test_cli_trains_with_mas_on_cpu_and_resumes(tmp_path):
 
 @pytest.mark.parametrize("flag", [
     ["--bf16"], ["--data-dir", "x"], ["--packed", "x"], ["--multihost"],
-    ["--n-model", "2"], ["--log-images"], ["--coordinator", "x"], ["--nsf"],
-    ["--f0-residual"]])
+    ["--n-model", "2"], ["--log-images"], ["--coordinator", "x"]])
 def test_cli_refuses_unported_flags(flag, capsys):
     with pytest.raises(SystemExit) as e:
         train_main(["--tiny", "--device", "cpu", "--steps", "1"] + flag)

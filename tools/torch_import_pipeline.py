@@ -16,14 +16,16 @@ Two inputs:
                   wrapper, through compat.torch_import. No JAX.
 Both write svs_<id>.pt (and, from a JAX directory of the transformer melody
 family, melody_notes.pt and melody_duration.pt) under --out. --tiny,
---decoder and --variant select the configuration the server will build
-(serve.app's flags of the same names); a tree of another configuration is
-refused. The JAX package does not save the seq2seq melody (melody_v2), so
-neither does this tool.
+--decoder, --nsf, --f0-residual and --variant select the configuration the
+server will build (serve.app's flags of the same names); a tree of another
+configuration is refused. The reference's .pth has no NSF excitation
+convs, so --pth with --nsf is refused. The JAX package does not save the
+seq2seq melody (melody_v2), so neither does this tool.
 
 Usage:
   python tools/torch_import_pipeline.py --jax-dir jax_pipeline --out served \
-      [--variant svs_v6_multispeaker] [--decoder hifigan] [--tiny]
+      [--variant svs_v6_multispeaker] [--decoder hifigan] [--nsf] \
+      [--f0-residual] [--tiny]
   python tools/torch_import_pipeline.py --pth G_AE.pth [--pth G_AE_F09.pth] \
       --out served [--tiny]
 """
@@ -39,12 +41,15 @@ import sys
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 
-def svs_config(tiny: bool, decoder: str):
-    """The SVSConfig serve.app builds for --tiny and --decoder."""
+def svs_config(tiny: bool, decoder: str, nsf: bool = False,
+               f0_residual: bool = False):
+    """The SVSConfig serve.app builds for --tiny, --decoder, --nsf and
+    --f0-residual."""
     from music_generation_tpu_torch.models.svs import SVSConfig
     from music_generation_tpu_torch.pipeline.synthesis import tiny_configs
     return dataclasses.replace(tiny_configs(0)[1] if tiny else SVSConfig(),
-                               decoder_type=decoder)
+                               decoder_type=decoder, nsf=nsf,
+                               f0_residual=f0_residual)
 
 
 def _restore_orbax(path: str) -> dict:
@@ -63,7 +68,8 @@ def _save(state_dict: dict, path: str) -> None:
 
 
 def import_jax_dir(jax_dir: str, out: str, variant: str = "svs_v6_multispeaker",
-                   decoder: str = "hifigan", tiny: bool = False) -> list:
+                   decoder: str = "hifigan", tiny: bool = False,
+                   nsf: bool = False, f0_residual: bool = False) -> list:
     """Convert a JAX pipeline directory; returns the files written."""
     from music_generation_tpu_torch.compat.from_jax import (
         melody_rename, sdp_state_dict_from_flax, state_dict_from_flax,
@@ -72,7 +78,7 @@ def import_jax_dir(jax_dir: str, out: str, variant: str = "svs_v6_multispeaker",
         build_melody_generator)
     from music_generation_tpu_torch.serve.variants import VARIANTS
 
-    cfg = svs_config(tiny, decoder)
+    cfg = svs_config(tiny, decoder, nsf, f0_residual)
     written = []
     for name in sorted(os.listdir(jax_dir)):
         if re.fullmatch(r"svs_\d+", name):
@@ -105,14 +111,15 @@ def import_jax_dir(jax_dir: str, out: str, variant: str = "svs_v6_multispeaker",
     return written
 
 
-def import_pth(files: list, out: str, tiny: bool = False) -> list:
+def import_pth(files: list, out: str, tiny: bool = False,
+               nsf: bool = False, f0_residual: bool = False) -> list:
     """Convert reference .pth files to svs_0.pt, svs_1.pt, ... in order;
-    returns the files written."""
+    returns the files written (an ``nsf`` config is refused)."""
     import torch
 
     from music_generation_tpu_torch.compat import (
         visinger_state_dict_from_torch)
-    cfg = svs_config(tiny, "hifigan")
+    cfg = svs_config(tiny, "hifigan", nsf, f0_residual)
     written = []
     for i, path in enumerate(files):
         blob = torch.load(path, map_location="cpu", weights_only=True)
@@ -135,16 +142,25 @@ def main(argv=None):
                    help="serve.app --variant: picks the melody family")
     p.add_argument("--decoder", default="hifigan",
                    choices=["hifigan", "istft", "mb_istft"])
+    p.add_argument("--nsf", action="store_true",
+                   help="the SVS trees were trained with train --nsf")
+    p.add_argument("--f0-residual", action="store_true",
+                   help="the SVS trees were trained with train "
+                        "--f0-residual")
     p.add_argument("--tiny", action="store_true")
     args = p.parse_args(argv)
     if args.pth and args.decoder != "hifigan":
         p.error("reference .pth files carry the HiFi-GAN decoder")
+    if args.nsf and args.decoder != "hifigan":
+        p.error("--nsf requires --decoder hifigan")
     try:
         if args.jax_dir:
             import_jax_dir(args.jax_dir, args.out, args.variant,
-                           args.decoder, args.tiny)
+                           args.decoder, args.tiny, args.nsf,
+                           args.f0_residual)
         else:
-            import_pth(args.pth, args.out, args.tiny)
+            import_pth(args.pth, args.out, args.tiny, args.nsf,
+                       args.f0_residual)
     except (ValueError, NotImplementedError) as e:
         p.error(str(e)[:500])
 
