@@ -76,11 +76,31 @@ Phases, each fatal on failure (no exception is caught):
               share over one half; under --f0 score log_f0_used equal to
               the score's pitch; the HiFi-GAN decoder alone in float32,
               bf16 (held to the relative-MAE bound) and with NSF
+ 12. served surface  serve.app's build_service with --fused --warmup at
+              full width (build and warm-up seconds): a lone request cold
+              and twice warm on the fused path (the service's path
+              counter); two concurrent requests, while a third holds the
+              fused path, on the staged path through the batcher
+              (/healthz); POST /synthesis_music_stream parsed chunk by
+              chunk (seconds to the first audio chunk and the last, chunk
+              count, PCM length equal to the staged song's); the fused
+              notes and per-sentence samples equal to the staged path's,
+              pinned 0.5 s syllables over 1.5x the samples of 0.2 s; a warm
+              request of each path profiled (wall, launches, busy share)
+              and its synchronising CUDA calls counted
+              (torch.cuda.set_sync_debug_mode); stream_score against the
+              monolithic decode of the same prior noise (1 LSB, peak over
+              1000 LSB); the chunked batch decode (64 frames, halo 24)
+              against the monolithic one (1 LSB, float within 1e-5 of the
+              peak), plain and under --nsf --f0 score; the HiFi-GAN's
+              receptive field in frames against the halo; peak memory of a
+              16-sentence batch at the 1984-frame bucket, monolithic and
+              chunked
 Launch counts are zeroed just before each main path and read just after
 it: phases 3-4 (the served slices), phase 5 (the variants, which align
 nothing: no MAS launch, kernel or plain), phase 8 (training), each
-decoder's training steps in phase 10, and phase 11's training steps and
-its served configurations (which align nothing). The kernels line
+decoder's training steps in phase 10, phase 11's training steps and its
+served configurations, and phase 12 (which aligns nothing). The kernels line
 reports the launches of phases 8 and 11's training. The lyric LMs launch
 no hand-written kernel. All phases run in full float32 (TF32 is off for
 matmuls and cuDNN convolutions), except phase 11's --decoder-bf16
@@ -276,25 +296,33 @@ def _post(port, payload):
 
 
 @contextlib.contextmanager
-def http_service(songs, lyrics=None, canned_dir=None):
-    """The port's HTTP service around ``songs`` on a free local port, on a
-    thread: yields (service, port), then shuts it down."""
-    from music_generation_tpu_torch.config import ServiceConfig
-    from music_generation_tpu_torch.serve.app import (MusicGenerationService,
-                                                      make_http_server)
-    service = MusicGenerationService(songs, lyrics,
-                                     ServiceConfig(log_dir="logs"),
-                                     canned_dir=canned_dir)
+def serving(service):
+    """``service`` behind the port's HTTP server on a free local port, on a
+    thread: yields the port, then shuts both down."""
+    from music_generation_tpu_torch.serve.app import make_http_server
     server = make_http_server(service, "127.0.0.1", 0)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     try:
-        yield service, server.server_address[1]
+        yield server.server_address[1]
     finally:
         server.shutdown()
         server.server_close()
         service.close()
         thread.join(timeout=30)
+
+
+@contextlib.contextmanager
+def http_service(songs, lyrics=None, canned_dir=None):
+    """The port's HTTP service around ``songs`` on a free local port, on a
+    thread: yields (service, port), then shuts it down."""
+    from music_generation_tpu_torch.config import ServiceConfig
+    from music_generation_tpu_torch.serve.app import MusicGenerationService
+    service = MusicGenerationService(songs, lyrics,
+                                     ServiceConfig(log_dir="logs"),
+                                     canned_dir=canned_dir)
+    with serving(service) as port:
+        yield service, port
 
 
 def profiled(fn) -> dict:
@@ -1751,6 +1779,401 @@ def phase_f0_variants(device) -> dict:
     return rows
 
 
+SURFACE_TEXT = "小小的天有大大的梦想，我知道我一直有双隐形的翅膀，带我飞飞过绝望"
+CHUNK_FRAMES, CHUNK_HALO = 64, 24     # the chunked batch decode checked
+AUDIBLE_LSB = 1000                    # a stream's peak must reach this
+CHUNK_REL = 1e-5                      # chunked decoder output against the
+                                      # monolithic one, of its peak
+MEMORY_BATCH = 16                     # sentences of the peak-memory batch
+
+
+def sync_calls(fn) -> tuple[int, list]:
+    """The synchronising CUDA calls fn() makes on this thread, counted by
+    torch.cuda.set_sync_debug_mode("warn"): (count, their sources as
+    "file:line x n", each the innermost frame of the port's package on the
+    stack, else the frame that raised the warning and its source line)."""
+    import collections
+    import linecache
+    import traceback
+    import warnings
+    import torch
+    where = collections.Counter()
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchronizing" not in str(message):
+            return
+        port = [f for f in traceback.extract_stack()
+                if "music_generation_tpu_torch" in f.filename]
+        f = port[-1] if port else None
+        where[f"{os.path.relpath(f.filename)}:{f.lineno}" if f
+              else f"{os.path.relpath(filename)}:{lineno} "
+              f"({linecache.getline(filename, lineno).strip()})"] += 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum(where.values()), [f"{k} x {n}" for k, n in
+                                 where.most_common()]
+
+
+def stream_http(port, payload) -> dict:
+    """POST /synthesis_music_stream, its chunked body parsed chunk by
+    chunk: the seconds to the header, to the first audio chunk (the first
+    one after the header and the silent lead-in) and to the last chunk,
+    the chunk count and the PCM."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    t0 = time.time()
+    conn.request("POST", "/synthesis_music_stream",
+                 body=json.dumps(payload, ensure_ascii=False).encode(),
+                 headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    if (resp.status != 200 or resp.getheader("Content-Type") != "audio/wav"
+            or resp.getheader("Transfer-Encoding") != "chunked"):
+        raise AssertionError(f"stream: {resp.status} {resp.getheaders()} "
+                             f"{resp.read()[:200]}")
+    chunks, times = [], []
+    while True:
+        size = int(resp.fp.readline().strip(), 16)
+        if size == 0:
+            resp.fp.readline()
+            break
+        chunks.append(resp.fp.read(size))
+        resp.fp.read(2)
+        times.append(time.time() - t0)
+    conn.close()
+    header, lead = chunks[0], np.frombuffer(chunks[1], np.int16)
+    if header[:4] != b"RIFF" or header[8:12] != b"WAVE" or len(header) != 44:
+        raise AssertionError(f"stream header {header!r}")
+    if len(lead) != int(0.2 * 22050) or lead.any():
+        raise AssertionError(f"stream lead-in: {len(lead)} samples")
+    return {"header_s": times[0], "first_audio_s": times[2],
+            "first_audio_after_header_s": times[2] - times[0],
+            "last_chunk_s": times[-1], "chunks": len(chunks),
+            "pcm": np.frombuffer(b"".join(chunks[1:]), np.int16)}
+
+
+def stream_against_monolithic(svs, score) -> dict:
+    """stream_score against clip(synthesize_score * STREAM_GAIN) to int16,
+    the same injected prior noise: within 1 LSB, audible. The random-init
+    conv_post is scaled by 32 (exact in float32, undone after) for it: its
+    own output's peak is reported beside."""
+    import torch
+    max_frames = svs._batch_inputs([score])[0]
+    noise = torch.randn((1, max_frames, svs.cfg.inter_channels),
+                        generator=torch.Generator(svs.device).manual_seed(
+                            SEED), device=svs.device)
+    gain = svs.STREAM_GAIN
+    row = {"frames_bucket": max_frames, "natural_peak_lsb": float(np.abs(
+        svs.synthesize_score(score, noise=noise)).max() * gain)}
+    weight = svs.model.decoder.conv_post.weight
+    with torch.no_grad():
+        weight.mul_(32.0)
+    try:
+        ref = svs.synthesize_score(score, noise=noise)
+        chunks = list(svs.stream_score(score, noise=noise))
+    finally:
+        with torch.no_grad():
+            weight.div_(32.0)
+    want = np.clip(ref * gain, -32768, 32767).astype(np.int16)
+    got = np.concatenate(chunks)
+    row.update(chunks=len(chunks), samples=len(got),
+               peak_lsb=int(np.abs(want.astype(np.int32)).max()))
+    if len(got) != len(want) or len(chunks) < 2:
+        raise AssertionError(f"stream vs monolithic: {row}")
+    row["max_lsb_diff"] = int(np.abs(got.astype(np.int32) - want).max())
+    if row["max_lsb_diff"] > 1 or row["peak_lsb"] < AUDIBLE_LSB:
+        raise AssertionError(f"stream vs monolithic: {row}")
+    return row
+
+
+def chunked_against_monolithic(svs, scores) -> dict:
+    """The int16 batch (dispatch_batch) with decode_chunk_frames=64, halo
+    24, against the monolithic one, the same prior noise: within 1 LSB;
+    the decoder's float output within CHUNK_REL of its peak."""
+    import torch
+    max_frames = svs._batch_inputs(scores)[0]
+    noise = torch.randn((len(scores), max_frames, svs.cfg.inter_channels),
+                        generator=torch.Generator(svs.device).manual_seed(
+                            SEED + 1), device=svs.device)
+    out = {}
+    for chunk in (None, CHUNK_FRAMES):
+        svs.decode_chunk_frames, svs.decode_chunk_halo = chunk, CHUNK_HALO
+        out[chunk] = svs.collect_batch(svs.dispatch_batch(scores, noise))
+    with torch.no_grad():
+        hidden, _, aux = svs._infer_hidden(scores, noise)
+        mono = svs.model.decode_hidden(hidden, aux.get("exc"))
+        chunked = svs._chunked_decode(hidden, aux.get("exc"))
+    svs.decode_chunk_frames = None
+    peak = float(mono.abs().max())
+    row = {"frames_bucket": max_frames, "sentences": len(scores),
+           "windows": -(-max_frames // CHUNK_FRAMES),
+           "max_lsb_diff": max(int(np.abs(a.astype(np.int32) - b).max())
+                               for a, b in zip(out[None], out[CHUNK_FRAMES])),
+           "float_max_abs_diff": float((chunked - mono).abs().max()),
+           "float_peak": peak}
+    if ([len(a) for a in out[None]] != [len(a) for a in out[CHUNK_FRAMES]]
+            or row["max_lsb_diff"] > 1
+            or row["float_max_abs_diff"] > CHUNK_REL * peak):
+        raise AssertionError(f"chunked vs monolithic decode: {row}")
+    return row
+
+
+def batch_peak_memory(svs) -> dict:
+    """torch.cuda.max_memory_allocated of one 16-sentence batch at the
+    1984-frame bucket, monolithic and chunked (64 frames, halo 24), and
+    the seconds of each (host clock to a synchronize)."""
+    import torch
+    from music_generation_tpu_torch.pipeline.synthesis import FRAME_BUCKETS
+    text = BENCH_SENTENCES[0]
+    score = svs.frontend.align(text + "AP", ["C4"] * (len(text) + 1),
+                               [0.9] * (len(text) + 1))
+    scores = [score] * MEMORY_BATCH
+    row = {"frames_bucket": svs._batch_inputs(scores)[0]}
+    if row["frames_bucket"] != FRAME_BUCKETS[-1]:
+        raise AssertionError(f"memory batch bucket {row}")
+    def peak(fn) -> tuple[float, int]:
+        """(seconds, peak bytes allocated above what was live before)."""
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        return time.time() - t0, torch.cuda.max_memory_allocated() - base
+
+    for name, chunk in (("monolithic", None), ("chunked", CHUNK_FRAMES)):
+        svs.decode_chunk_frames = chunk
+        row[f"{name}_s"], row[f"{name}_peak_bytes"] = peak(
+            lambda: svs.collect_batch(svs.dispatch_batch(scores)))
+    svs.decode_chunk_frames = None
+    # where the chunked peak comes from: infer_hidden alone, then one
+    # window of 64 + 2 x 24 frames through the decoder
+    with torch.no_grad():
+        _, row["infer_hidden_peak_bytes"] = peak(
+            lambda: svs._infer_hidden(scores))
+        hidden = svs._infer_hidden(scores)[0][:, : CHUNK_FRAMES
+                                              + 2 * CHUNK_HALO]
+        _, row["window_decode_peak_bytes"] = peak(
+            lambda: svs.model.decode_hidden(hidden))
+    return row
+
+
+def phase_served_surface(device) -> dict:
+    """Phase 12: serve.app's build_service with --fused --warmup at full
+    width; the fused path for a lone request (by the service's path
+    counter), its notes and sentence lengths against the staged path,
+    pinned durations, launches, busy share and the synchronising calls of
+    each path; two concurrent requests through the staged path's batcher;
+    POST /synthesis_music_stream; stream_score against the monolithic
+    decode; the chunked batch decode against the monolithic one, plain and
+    under --nsf --f0 score; the decoder's receptive field; peak memory of
+    a 16-sentence 1984-frame batch. Runs no MAS, kernel or plain."""
+    import torch
+    from music_generation_tpu_torch.models.svs.hifigan import (
+        receptive_radius_frames)
+    from music_generation_tpu_torch.ops import maximum_path
+    from music_generation_tpu_torch.pipeline.synthesis import (
+        build_svs_synthesizers)
+    from music_generation_tpu_torch.serve import app
+    start = time.time()
+    maximum_path.kernel_launches = 0
+    maximum_path.plain_calls = 0
+    rows, steps = {}, {}                  # steps: seconds into the phase
+    t0 = time.time()
+    args, cfg = app.configure(["--fused", "--warmup", "--device",
+                               str(device)])
+    service = app.build_service(args, cfg)
+    torch.cuda.synchronize()
+    warm = service.warmup
+    rows["build_s"] = (time.time() - t0 - warm["request_s"]
+                       - warm["staged_s"])
+    rows["warmup"] = warm
+    if warm["code"] != 200 or service.fused is None:
+        raise AssertionError(f"--fused --warmup: {warm}")
+    songs, fused = service.songs, service.fused
+    text = REQUESTS[0]["text"]
+    with serving(service) as port:
+        # a lone request, cold and twice warm: the fused path each time
+        row = {"chars": len(text)}
+        before = dict(service.path_counts)
+        for kind in ("cold", "warm", "warm_2"):
+            t1 = time.time()
+            out = _post(port, {"text": text})
+            row[f"{kind}_s"] = time.time() - t1
+            row["audio_s"] = check_song(f"fused {kind} request", out)
+        if service.path_counts != {"fused": before["fused"] + 3,
+                                   "staged": before["staged"]}:
+            raise AssertionError(f"lone requests did not take the fused "
+                                 f"path: {before} -> {service.path_counts}")
+        rows["fused_requests"] = row
+
+        # two concurrent requests while a third holds the fused path: both
+        # staged, through the batcher
+        gate, held_out = threading.Event(), []
+        fused_song = fused.synthesize_song
+
+        def held(*a, **k):
+            gate.wait(120)
+            return fused_song(*a, **k)
+
+        before = dict(service.path_counts)
+        stats0 = dict(service._batcher.stats)
+        fused.synthesize_song = held
+        try:
+            first = threading.Thread(target=lambda: held_out.append(
+                _post(port, {"text": text})))
+            first.start()
+            deadline = time.time() + 120
+            while service.path_counts["fused"] == before["fused"]:
+                if time.time() > deadline:
+                    raise AssertionError("the held request never started")
+                time.sleep(0.005)
+            pair = []
+            threads = [threading.Thread(target=lambda p=p: pair.append(
+                _post(port, p))) for p in REQUESTS[1:]]
+            t1 = time.time()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            pair_s = time.time() - t1
+        finally:
+            gate.set()
+            del fused.synthesize_song
+            first.join(timeout=300)
+        for i, out in enumerate(pair + held_out):
+            check_song(f"concurrent request {i}", out)
+        health = json.loads(urllib.request.urlopen(
+            f"http://127.0.0.1:{port}/healthz", timeout=60).read())
+        batching = {k: health["batching"][k] - stats0[k]
+                    for k in ("requests", "device_calls", "sentences")}
+        if (service.path_counts != {"fused": before["fused"] + 1,
+                                    "staged": before["staged"] + 2}
+                or batching["requests"] != 2 or not health.get("fused")):
+            raise AssertionError(f"concurrent requests: {service.path_counts}"
+                                 f" {health}")
+        rows["concurrent"] = {"pair_s": pair_s, "batching": batching,
+                              "healthz_fused": health["fused"]}
+
+        # streaming over HTTP, cold (the first windows of their shapes)
+        # and warm, against the staged song of the same text
+        staged_samples = 4410 + sum(
+            songs.synthesize_song(text).sentence_samples)
+        for kind in ("cold", "warm"):
+            stream = stream_http(port, {"text": text})
+            stream["pcm_samples"] = len(stream.pop("pcm"))
+            if stream["pcm_samples"] != staged_samples:
+                raise AssertionError(f"stream length: {stream}, staged "
+                                     f"{staged_samples}")
+            rows[f"stream_http_{kind}"] = stream
+        steps["requests_and_stream"] = time.time() - start
+
+    # the fused path against the staged one on the same weights
+    same = {}
+    for t in (text, SURFACE_TEXT):
+        a, b = fused.synthesize_song(t), songs.synthesize_song(t)
+        if a.notes != b.notes or a.sentence_samples != b.sentence_samples:
+            raise AssertionError(f"fused vs staged: {a.notes} {b.notes} "
+                                 f"{a.sentence_samples} "
+                                 f"{b.sentence_samples}")
+        same[str(len(a.lyrics_sentences))] = a.sentence_samples
+    steps["fused_notes_and_lengths"] = time.time() - start
+    short = fused.synthesize_song(text, pinned_syllable_seconds=0.2)
+    long = fused.synthesize_song(text, pinned_syllable_seconds=0.5)
+    ratio = sum(long.sentence_samples) / sum(short.sentence_samples)
+    if not ratio > 1.5:
+        raise AssertionError(f"pinned 0.5 / 0.2 s samples: {ratio}")
+    rows["fused_vs_staged"] = {"sentence_samples": same,
+                               "pinned_ratio": ratio}
+    steps["pinned"] = time.time() - start
+    # warm walls in turns (before any profiler session, which slows what
+    # follows it), then each path's launches, busy share and synchronising
+    # calls
+    paths = {"fused": fused, "staged": songs}
+    walls = {"fused": [], "staged": []}
+    for name in ("fused", "staged", "staged", "fused", "fused", "staged"):
+        t1 = time.time()
+        paths[name].synthesize_song(text)
+        torch.cuda.synchronize()
+        walls[name].append(time.time() - t1)
+    steps["walls"] = time.time() - start
+    for name, path in paths.items():
+        r = {"warm_walls_s": walls[name]}
+        r["sync_calls"], r["sync_sources"] = sync_calls(
+            lambda: path.synthesize_song(text))
+        steps[f"{name}_sync_calls"] = time.time() - start
+        r.update(profiled(lambda: path.synthesize_song(text)))
+        steps[f"{name}_profiled"] = time.time() - start
+        rows[f"{name}_profile"] = r
+
+    # streaming against the monolithic decode, one full-width sentence
+    svs = songs.synthesizers[0]
+    scores = songs._scores(svs, BENCH_SENTENCES)[1]
+    rows["stream_vs_monolithic"] = stream_against_monolithic(svs, scores[0])
+    # the chunked batch decode: plain, then under --nsf --f0 score
+    c = svs.cfg
+    reach = receptive_radius_frames(
+        c.resblock, c.resblock_kernel_sizes, c.resblock_dilation_sizes,
+        c.upsample_rates, c.upsample_kernel_sizes)
+    if reach > CHUNK_HALO:
+        raise AssertionError(f"halo {CHUNK_HALO} < receptive field {reach}")
+    rows["receptive_field_frames"] = reach
+    rows["chunked"] = chunked_against_monolithic(svs, scores)
+    steps["stream_and_chunked"] = time.time() - start
+    rows["memory"] = batch_peak_memory(svs)
+    steps["memory"] = time.time() - start
+    del service, songs, fused, svs, paths
+    torch.cuda.empty_cache()
+    nsf = build_svs_synthesizers(n_speakers=1, seed=SEED, device=device,
+                                 nsf=True, f0_mode="score")[0]
+    rows["chunked_nsf_score"] = chunked_against_monolithic(nsf, scores)
+    del nsf
+    torch.cuda.empty_cache()
+    if maximum_path.kernel_launches or maximum_path.plain_calls:
+        raise AssertionError(f"the served surface ran MAS: kernel "
+                             f"{maximum_path.kernel_launches}, plain "
+                             f"{maximum_path.plain_calls}")
+    rows["phase_s"] = time.time() - start
+    rows["steps_s"] = steps
+    fp, sp = rows["fused_profile"], rows["staged_profile"]
+    st = rows["stream_http_warm"]
+    log(f"served surface phase ({rows['phase_s']:.1f} s): build "
+        f"{rows['build_s']:.1f} s, --warmup {warm['request_s']:.2f} s fused "
+        f"+ {warm['staged_s']:.2f} s staged; fused lone request cold "
+        f"{rows['fused_requests']['cold_s']:.3f} s, warm "
+        f"{rows['fused_requests']['warm_s']:.3f} / "
+        f"{rows['fused_requests']['warm_2_s']:.3f} s; warm fused / staged: "
+        f"{min(fp['warm_walls_s']):.3f} / {min(sp['warm_walls_s']):.3f} s "
+        f"(best of 3 in turns), "
+        f"{fp['kernel_launches']} / {sp['kernel_launches']} launches, busy "
+        f"{fp['device_busy_share']:.3f} / {sp['device_busy_share']:.3f}, "
+        f"sync calls {fp['sync_calls']} / {sp['sync_calls']}; warm stream: "
+        f"first audio {st['first_audio_after_header_s']:.3f} s after the "
+        f"header (cold "
+        f"{rows['stream_http_cold']['first_audio_after_header_s']:.3f} s), "
+        f"last chunk {st['last_chunk_s']:.3f} s, {st['chunks']} chunks; "
+        f"stream vs monolithic "
+        f"{rows['stream_vs_monolithic']['max_lsb_diff']} LSB (peak "
+        f"{rows['stream_vs_monolithic']['peak_lsb']}); chunked vs monolithic "
+        f"{rows['chunked']['max_lsb_diff']} / "
+        f"{rows['chunked_nsf_score']['max_lsb_diff']} LSB (nsf); receptive "
+        f"field {rows['receptive_field_frames']} frames <= halo "
+        f"{CHUNK_HALO}; peak memory 16 x 1984 frames monolithic "
+        f"{rows['memory']['monolithic_peak_bytes'] / 2 ** 30:.2f} GiB, "
+        f"chunked {rows['memory']['chunked_peak_bytes'] / 2 ** 30:.2f} GiB; "
+        f"MAS 0 launches, plain 0")
+    log("served surface phase: " + json.dumps(rows, ensure_ascii=False))
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1780,12 +2203,15 @@ def main() -> int:
     decoders = phase_decoders(device)
     torch.cuda.empty_cache()
     f0_variants = phase_f0_variants(device)
+    torch.cuda.empty_cache()
+    surface = phase_served_surface(device)
     record = earlier.pop("record")
     record["launches"] = (train["mas_launches"]
                           + f0_variants["train"]["mas_launches"])
     log(json.dumps(earlier | {"train": train, "checkpoint": checkpoint,
                               "decoders": decoders,
-                              "f0_variants": f0_variants},
+                              "f0_variants": f0_variants,
+                              "served_surface": surface},
                    ensure_ascii=False))
     log(json.dumps({"kernels": [record]}))
     log(json.dumps({"ok": True, "device": {

@@ -1,13 +1,15 @@
 """WAV helpers (host-side, numpy + scipy).
 
-Twin of normalize_int16 / concat_with_delay / write_wav_bytes in
-music_generation_tpu/audio/wav.py: the reference's int16 normalize and
-concatenate conventions.
+Twin of normalize_int16 / concat_with_delay / write_wav_bytes /
+streaming_wav_header in music_generation_tpu/audio/wav.py: the reference's
+int16 normalize and concatenate conventions, and the header of a WAV
+stream.
 """
 
 from __future__ import annotations
 
 import io
+import struct
 
 import numpy as np
 from scipy.io import wavfile
@@ -36,3 +38,18 @@ def write_wav_bytes(wav: np.ndarray, sample_rate: int = SAMPLE_RATE) -> bytes:
     buf = io.BytesIO()
     wavfile.write(buf, sample_rate, np.asarray(wav).astype(np.int16))
     return buf.getvalue()
+
+
+def streaming_wav_header(sample_rate: int = SAMPLE_RATE, channels: int = 1,
+                         bits: int = 16) -> bytes:
+    """WAV header for a stream of unknown length: the RIFF and data sizes
+    are the 0xFFFFFFFF sentinel that players read as 'until the end of
+    the stream' (a stream cannot seek back to patch them)."""
+    byte_rate = sample_rate * channels * bits // 8
+    block_align = channels * bits // 8
+    return b"".join([
+        b"RIFF", struct.pack("<I", 0xFFFFFFFF), b"WAVE",
+        b"fmt ", struct.pack("<IHHIIHH", 16, 1, channels, sample_rate,
+                             byte_rate, block_align, bits),
+        b"data", struct.pack("<I", 0xFFFFFFFF),
+    ])

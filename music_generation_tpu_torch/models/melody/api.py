@@ -66,7 +66,10 @@ def repair(tokens: torch.Tensor, length: int) -> torch.Tensor:
     seen_eos = torch.cumsum((tokens == EOS_ID).to(torch.int32), 0) > 0
     valid = ~seen_eos & (tokens != 0)
     last_idx = torch.where(valid, pos, torch.full_like(pos, -1)).max()
-    last = torch.where(last_idx >= 0, tokens[last_idx.clamp(min=0)],
+    # a gather, not tokens[last_idx]: indexing by a 0-dim tensor reads it
+    # on the host
+    last = torch.where(last_idx >= 0,
+                       tokens.gather(0, last_idx.clamp(min=0).view(1))[0],
                        torch.full_like(last_idx, 4))
     out = torch.where(valid, tokens, last)
     return torch.where(pos < length, out, torch.zeros_like(out))
@@ -160,25 +163,37 @@ class MelodyGenerator:
         return w * mask
 
     @torch.no_grad()
+    def song_tensors(self, src_all: torch.Tensor, lengths: list[int],
+                     max_decode: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """The whole-song melody on the device, with no host sync: the
+        counterpart of the JAX package's MelodyGenerator._song_impl.
+        src_all: [S, SRC_LEN] lyric ids on the device (_encode_src rows);
+        lengths: each sentence's lyric length (at least 1). Each sentence's
+        beam decode sees the previous sentence's repaired notes. Returns
+        (note ids [S, max_decode], repaired and zero past each length; raw
+        durations [S, SRC_LEN], centiseconds before rounding)."""
+        prev = torch.zeros(SRC_LEN, dtype=torch.int64, device=self.device)
+        notes_all = []
+        for k, length in enumerate(lengths):
+            seq = self._decode_sentence(src_all[k: k + 1], prev, k > 0,
+                                        max_decode)
+            notes = repair(seq, length)
+            prev = next_prev_ids(notes, length)
+            notes_all.append(notes)
+        return torch.stack(notes_all), self.note_durations(src_all)
+
     def generate_song(self, sentences: list[str]):
         """All sentences of a song. Returns a list of (lyric+'AP', note
         strings + ['rest'], durations + [0.6])."""
         if not sentences:
             return []
         src_np = np.concatenate([self._encode_src(s) for s in sentences])
-        src_all = torch.from_numpy(src_np).to(self.device)
-        max_decode = _decode_bucket(int(max(len(s) for s in sentences)) + 2)
-        prev = torch.zeros(SRC_LEN, dtype=torch.int64, device=self.device)
-        notes_all = []
-        for k, lyric in enumerate(sentences):
-            length = max(len(lyric), 1)
-            seq = self._decode_sentence(src_all[k: k + 1], prev, k > 0,
-                                        max_decode)
-            notes = repair(seq, length)
-            prev = next_prev_ids(notes, length)
-            notes_all.append(notes)
-        notes_ids = torch.stack(notes_all).cpu().numpy()
-        dur_raw = self.note_durations(src_all).cpu().numpy()
+        notes_ids, dur_raw = self.song_tensors(
+            torch.from_numpy(src_np).to(self.device),
+            [max(len(s), 1) for s in sentences],
+            _decode_bucket(int(max(len(s) for s in sentences)) + 2))
+        notes_ids = notes_ids.cpu().numpy()
+        dur_raw = dur_raw.cpu().numpy()
 
         results = []
         for i, lyric in enumerate(sentences):

@@ -41,8 +41,10 @@ def beam_search(decode_logits: Callable[[torch.Tensor, int], torch.Tensor],
         logprobs = decode_logits(seqs, step)              # [beam, V]
         vocab = logprobs.shape[-1]
         if frozen is None:
-            frozen = torch.full((vocab,), NEG_INF, device=device)
-            frozen[pad_id] = 0.0
+            # built by a comparison: frozen[pad_id] = 0.0 would copy a host
+            # scalar to the card and wait for it
+            frozen = torch.where(
+                torch.arange(vocab, device=device) == pad_id, 0.0, NEG_INF)
         logprobs = torch.where(finished[:, None], frozen[None, :], logprobs)
         combined = scores[:, None] + logprobs
         if step == 0:  # all beams share the BOS state: expand beam 0 only
@@ -53,5 +55,7 @@ def beam_search(decode_logits: Callable[[torch.Tensor, int], torch.Tensor],
         seqs = seqs[src_beam]
         seqs[:, step + 1] = token
         finished = finished[src_beam] | (token == eos_id)
-    best = torch.argmax(scores)
-    return seqs[best, 1:], scores[best]
+    # index_select, not seqs[best]: indexing by a 0-dim tensor reads it on
+    # the host
+    best = torch.argmax(scores).view(1)
+    return seqs.index_select(0, best)[0, 1:], scores.index_select(0, best)[0]

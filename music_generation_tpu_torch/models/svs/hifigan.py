@@ -22,6 +22,31 @@ from ...core.layers import (LRELU_SLOPE, Conv1d, ConvTranspose1d,
                             lecun_normal_)
 
 
+def receptive_radius_frames(resblock: str = "1",
+                            resblock_kernel_sizes: Sequence[int] = (3, 7, 11),
+                            resblock_dilation_sizes: Sequence[Sequence[int]]
+                            = ((1, 3, 5),) * 3,
+                            upsample_rates: Sequence[int] = (8, 8, 2, 2),
+                            upsample_kernel_sizes: Sequence[int]
+                            = (16, 16, 4, 4)) -> int:
+    """How many input frames on each side of an output sample the
+    HiFi-GAN generator reads, rounded up: conv_pre (k 7), each transposed
+    conv (at most ceil(k / u) inputs each side), each stage's widest
+    resblock (ResBlock1: (k - 1) / 2 * (d + 1) per dilation d; ResBlock2:
+    (k - 1) / 2 * d) and conv_post (k 7), each reach taken at its stage's
+    rate and summed. A chunked decode whose halo is at least this gives
+    the monolithic decode's samples (SVSSynthesizer._chunked_decode)."""
+    reach, rate = 3.0, 1                            # conv_pre, in frames
+    for u, k in zip(upsample_rates, upsample_kernel_sizes):
+        reach += math.ceil(k / u) / rate            # the transposed conv
+        rate *= u
+        reach += max(sum((rk - 1) / 2 * (d + (resblock == "1"))
+                         for d in rd)
+                     for rk, rd in zip(resblock_kernel_sizes,
+                                       resblock_dilation_sizes)) / rate
+    return math.ceil(reach + 3 / rate)              # conv_post
+
+
 class ResBlock1(nn.Module):
     def __init__(self, channels: int, kernel_size: int = 3,
                  dilations: Sequence[int] = (1, 3, 5)):

@@ -2,7 +2,8 @@
 
 Twin of music_generation_tpu/pipeline/synthesis.py for the served path:
 sentence split, whole-song melody, G2P score alignment, one batched SVS
-call with on-device int16 peak normalisation, 0.2 s leading pad, WAV bytes.
+call with on-device int16 peak normalisation, 0.2 s leading pad, WAV bytes;
+the halo-chunked vocoder decode and streaming (stream_score, stream_song).
 Inputs are padded to the same (phone, frame) buckets as the JAX package:
 the vocoder has no mask, so the frame bucket shapes the last samples of
 every sentence and must match for the two packages to agree.
@@ -22,7 +23,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..audio.wav import concat_with_delay, write_wav_bytes
+from ..audio.wav import (SAMPLE_RATE, concat_with_delay, normalize_int16,
+                         write_wav_bytes)
 from ..device import resolve_device
 from ..frontend import ScoreFrontend, load_lexicon, midi_to_note
 from ..models.melody import (MelodyConfig, MelodyGenerator,
@@ -66,20 +68,68 @@ def _bucket(value: int, buckets: tuple[int, ...]) -> int:
     return -(-value // 64) * 64
 
 
+def peak_int16(audio: torch.Tensor, mel_len: torch.Tensor,
+               hop: int) -> torch.Tensor:
+    """Per-sentence int16 peak normalisation on the device, the reference's
+    32767 / max(0.01, peak) over each sentence's valid samples: audio
+    [B, S, 1] float -> [B, S] int16, zero past mel_len * hop."""
+    a = audio[..., 0]
+    valid = (torch.arange(a.shape[1], device=a.device)[None, :]
+             < (mel_len * hop)[:, None])
+    a = a * valid
+    peak = torch.clamp(a.abs().amax(dim=1, keepdim=True), min=0.01)
+    return (a * (32767.0 / peak)).to(torch.int16)
+
+
+def _start_host_copy(t: torch.Tensor):
+    """Start t's copy to the host: on a GPU an asynchronous copy into
+    pinned memory and an event behind it, so that later work is not held
+    up by the copy; on the CPU t itself."""
+    if t.device.type != "cuda":
+        return t, None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return host, done
+
+
+def _host_array(copy) -> np.ndarray:
+    host, done = copy
+    if done is not None:
+        done.synchronize()
+    return host.numpy()
+
+
 class SVSSynthesizer:
-    """Score -> waveform on one device, batched over sentences."""
+    """Score -> waveform on one device, batched over sentences.
+
+    ``decode_chunk_frames``: decode the vocoder in windows of that many
+    frames, each widened by ``decode_chunk_halo`` frames on both sides and
+    centre-cropped (_chunked_decode), which bounds the decoder's
+    activations; the halo must cover the decoder's receptive field
+    (models.svs.hifigan.receptive_radius_frames) for the windows to give
+    the monolithic decode's samples."""
 
     # largest sentence batch per device call: inherited; not yet measured
     # on the H100
     MAX_BATCH = 16
+    # fixed streaming gain: the decoder output is tanh-bounded to (-1, 1),
+    # so a constant scale is safe; a stream cannot use the per-sentence
+    # peak normalisation (the peak is in the future)
+    STREAM_GAIN = 0.95 * 32767.0
 
     def __init__(self, cfg: Optional[SVSConfig] = None, seed: int = 0,
                  frontend: Optional[ScoreFrontend] = None, device=None,
-                 max_batch: Optional[int] = None):
+                 max_batch: Optional[int] = None,
+                 decode_chunk_frames: Optional[int] = None,
+                 decode_chunk_halo: int = 24):
         self.device = resolve_device(device)
         self.cfg = cfg or SVSConfig()
         self.frontend = frontend or ScoreFrontend()
         self.max_batch = max_batch or self.MAX_BATCH
+        self.decode_chunk_frames = decode_chunk_frames
+        self.decode_chunk_halo = decode_chunk_halo
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
             self.model = VISinger(self.cfg)
@@ -113,6 +163,113 @@ class SVSSynthesizer:
         if self.device.type == "cuda":
             tensor = tensor.pin_memory()
         return max_frames, tensor.to(self.device, non_blocking=True)
+
+    def _infer_hidden(self, scores: list,
+                      noise: Optional[torch.Tensor] = None):
+        """VISinger.infer_hidden of a batch of scores, padded to their
+        buckets: (hidden [b, max_frames, inter], mel_len [b], aux)."""
+        max_frames, packed = self._batch_inputs(scores)
+        return self.model.infer_hidden(
+            packed[0], packed[3, :, 0], packed[1],
+            packed[4].view(torch.float32), packed[2], max_frames,
+            noise=noise, generator=self.generator)
+
+    def _chunked_decode(self, hidden: torch.Tensor,
+                        exc: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The vocoder over frame windows (the JAX twin's lax.scan as a
+        loop): ceil(f / chunk) windows of chunk + 2 * halo frames, the last
+        output window moved back to end at f; window starts are clamped to
+        [0, f - win], never zero-padded, so the first and last windows sit
+        on the signal's edges and see the decoder's own conv padding there,
+        as the monolithic decode does. Each window's centre chunk is
+        cropped at off * hop. Under NSF the full-length source ``exc`` is
+        sliced at ws * hop, which keeps its phase continuous. f <= win is
+        one plain decode_hidden."""
+        chunk, halo = self.decode_chunk_frames, self.decode_chunk_halo
+        hop = self.cfg.hop_length
+        b, f, _ = hidden.shape
+        win = chunk + 2 * halo
+        if f <= win:
+            return self.model.decode_hidden(hidden, exc)
+        out = torch.empty((b, f * hop, 1), dtype=torch.float32,
+                          device=hidden.device)
+        for k in range(-(-f // chunk)):
+            out_start = min(k * chunk, f - chunk)
+            ws = min(max(out_start - halo, 0), f - win)
+            off = out_start - ws
+            e = None if exc is None else exc[:, ws * hop: (ws + win) * hop]
+            y = self.model.decode_hidden(hidden[:, ws: ws + win], e)
+            out[:, out_start * hop: (out_start + chunk) * hop] = \
+                y[:, off * hop: (off + chunk) * hop]
+        return out
+
+    def _split(self, score, noise) -> list:
+        pieces = self.split_oversize(score)
+        if noise is not None and len(pieces) > 1:
+            raise ValueError(f"an injected prior noise serves one decoder "
+                             f"call; this score splits into {len(pieces)}")
+        return pieces
+
+    def synthesize(self, text: str, notes: list[str],
+                   durations: list[float]) -> np.ndarray:
+        """One sentence -> float waveform (un-normalised, trimmed)."""
+        return self.synthesize_score(self.frontend.align(text, notes,
+                                                         durations))
+
+    @torch.no_grad()
+    def synthesize_score(self, score,
+                         noise: Optional[torch.Tensor] = None
+                         ) -> np.ndarray:
+        """One score -> its float64 waveform, un-normalised and trimmed to
+        its frames, from the monolithic decode; an over-long score splits
+        at syllables and its pieces are joined. ``noise`` [1, max_frames,
+        inter] replaces the prior sample (a score that does not split)."""
+        pieces = self._split(score, noise)
+        if len(pieces) > 1:
+            return np.concatenate([self.synthesize_score(p) for p in pieces])
+        hidden, mel_len, aux = self._infer_hidden([score], noise)
+        audio = self.model.decode_hidden(hidden, aux.get("exc"))
+        n = int(mel_len[0]) * self.cfg.hop_length
+        return audio[0, :n, 0].cpu().numpy().astype(np.float64)
+
+    @torch.no_grad()
+    def stream_score(self, score, chunk_frames: Optional[int] = None,
+                     noise: Optional[torch.Tensor] = None):
+        """Yield int16 waveform chunks as the vocoder decodes them, one per
+        window of ``chunk_frames`` (else decode_chunk_frames, else 64)
+        frames, with the halo and clamped windows of _chunked_decode: the
+        concatenated stream is the monolithic decode at STREAM_GAIN,
+        clipped and truncated to int16. Window k + 1's decode is enqueued
+        before window k is read on the host, and each window's copy is
+        enqueued right behind its own decode, so the host reads window k
+        while the device decodes window k + 1. ``noise`` as in
+        synthesize_score."""
+        pieces = self._split(score, noise)
+        if len(pieces) > 1:
+            for p in pieces:
+                yield from self.stream_score(p, chunk_frames=chunk_frames)
+            return
+        chunk = chunk_frames or self.decode_chunk_frames or 64
+        halo, hop = self.decode_chunk_halo, self.cfg.hop_length
+        hidden, mel_len, aux = self._infer_hidden([score], noise)
+        exc = aux.get("exc")
+        n = int(mel_len[0])
+        f = hidden.shape[1]
+        win = min(chunk + 2 * halo, f)
+        pending = []
+        for out_start in range(0, n, chunk):
+            m = min(chunk, n - out_start)
+            ws = min(max(out_start - halo, 0), f - win)
+            off = out_start - ws
+            e = None if exc is None else exc[:, ws * hop: (ws + win) * hop]
+            y = self.model.decode_hidden(hidden[:, ws: ws + win], e)
+            pcm = torch.clamp(y[0, off * hop: (off + m) * hop, 0]
+                              * self.STREAM_GAIN, -32768.0, 32767.0)
+            pending.append(_start_host_copy(pcm.to(torch.int16)))
+            if len(pending) > 1:
+                yield _host_array(pending.pop(0))
+        for copy in pending:
+            yield _host_array(copy)
 
     def split_oversize(self, score, cap: int = FRAME_BUCKETS[-1]) -> list:
         """Split a score whose frame bound exceeds the TextPostNet position
@@ -165,22 +322,16 @@ class SVSSynthesizer:
     @torch.no_grad()
     def dispatch_batch(self, scores: list,
                        noise: Optional[torch.Tensor] = None):
-        """Enqueue one batched SVS call (no host sync): infer, then the
-        per-sentence 32767/max(0.01, peak) int16 normalisation on the
-        device. Returns a handle for collect_batch."""
-        max_frames, packed = self._batch_inputs(scores)
-        hop = self.cfg.hop_length
-        audio, mel_len, _ = self.model.infer(
-            packed[0], packed[3, :, 0], packed[1],
-            packed[4].view(torch.float32), packed[2], max_frames,
-            noise=noise, generator=self.generator)
-        a = audio[..., 0]
-        valid = (torch.arange(a.shape[1], device=a.device)[None, :]
-                 < (mel_len * hop)[:, None])
-        a = a * valid
-        peak = torch.clamp(a.abs().amax(dim=1, keepdim=True), min=0.01)
-        out = (a * (32767.0 / peak)).to(torch.int16)
-        return out, mel_len, len(scores)
+        """Enqueue one batched SVS call (no host sync): infer (the vocoder
+        chunked when decode_chunk_frames is set), then the per-sentence
+        32767/max(0.01, peak) int16 normalisation on the device. Returns a
+        handle for collect_batch."""
+        hidden, mel_len, aux = self._infer_hidden(scores, noise)
+        decode = (self._chunked_decode if self.decode_chunk_frames
+                  else self.model.decode_hidden)
+        audio = decode(hidden, aux.get("exc"))
+        return (peak_int16(audio, mel_len, self.cfg.hop_length), mel_len,
+                len(scores))
 
     def collect_batch(self, handle) -> list[np.ndarray]:
         audio, mel_len, b = handle
@@ -189,6 +340,23 @@ class SVSSynthesizer:
         return [audio[i, : int(mel_len[i]) * self.cfg.hop_length]
                 for i in range(b)]
 
+    def batch_cost_analysis(self, scores: list) -> dict:
+        """{"flops": n} of one dispatch_batch of these scores, counted by
+        torch.utils.flop_counter.FlopCounterMode while the batch runs once:
+        matrix products, convolutions (transposed ones too) and attention,
+        two FLOPs per multiply-add. Elementwise work is not counted, which
+        XLA's cost_analysis (the JAX twin's source) does count. The prior
+        draw it takes is given back, so later requests draw as if it had
+        not run."""
+        from torch.utils.flop_counter import FlopCounterMode
+        state = self.generator.get_state()
+        try:
+            with FlopCounterMode(display=False) as counter:
+                self.dispatch_batch(scores)
+        finally:
+            self.generator.set_state(state)
+        return {"flops": counter.get_total_flops()}
+
 
 @dataclass
 class SongResult:
@@ -196,6 +364,7 @@ class SongResult:
     lyrics_sentences: list[str]
     notes: list[list[str]]
     timings: dict = field(default_factory=dict)
+    sentence_samples: list[int] = field(default_factory=list)
 
 
 class SongSynthesizer:
@@ -215,15 +384,9 @@ class SongSynthesizer:
         # SVS stage batches across requests
         self._melody_lock = threading.Lock()
 
-    def synthesize_song(self, lyrics: str, singer_id: int = 0,
-                        svs_batch_fn=None) -> SongResult:
-        """``svs_batch_fn(scores) -> wavs`` (when given) replaces the direct
-        SVS call — the serving tier passes a cross-request coalescer
-        (serve/batching.SVSBatcher.fn_for)."""
-        svs = self.synthesizers.get(singer_id, self.synthesizers[0])
-        sentences = split_sentences(lyrics,
-                                    replacements=self.lyric_replacements)
-        t_start = time.time()
+    def _scores(self, svs, sentences: list[str]):
+        """The melody of every sentence, then its aligned score: (note
+        names per sentence, scores). The melody runs under _melody_lock."""
         with self._melody_lock:
             if hasattr(self.melody, "generate_song"):
                 outs = self.melody.generate_song(sentences)
@@ -241,10 +404,28 @@ class SongSynthesizer:
             all_notes.append(note_names)
             scores.append(svs.frontend.align(out_lyric, note_names,
                                              durations))
+        return all_notes, scores
+
+    def synthesize_song(self, lyrics: str, singer_id: int = 0,
+                        batch_svs: bool = True,
+                        svs_batch_fn=None) -> SongResult:
+        """``svs_batch_fn(scores) -> wavs`` (when given) replaces the direct
+        SVS call — the serving tier passes a cross-request coalescer
+        (serve/batching.SVSBatcher.fn_for). ``batch_svs=False`` synthesizes
+        sentence by sentence (synthesize_score) and peak-normalises each on
+        the host."""
+        svs = self.synthesizers.get(singer_id, self.synthesizers[0])
+        sentences = split_sentences(lyrics,
+                                    replacements=self.lyric_replacements)
+        t_start = time.time()
+        all_notes, scores = self._scores(svs, sentences)
         melody_s = time.time() - t_start
 
         t0 = time.time()
-        wavs = (svs_batch_fn or svs.synthesize_batch)(scores)
+        if svs_batch_fn is not None or batch_svs:
+            wavs = (svs_batch_fn or svs.synthesize_batch)(scores)
+        else:
+            wavs = [normalize_int16(svs.synthesize_score(s)) for s in scores]
         svs_s = time.time() - t0
         song = concat_with_delay(wavs, delay_seconds=0.2)
         return SongResult(
@@ -253,7 +434,24 @@ class SongSynthesizer:
             notes=all_notes,
             timings={"total_s": time.time() - t_start,
                      "melody_s": melody_s, "svs_s": svs_s},
+            sentence_samples=[len(w) for w in wavs],
         )
+
+    def stream_song(self, lyrics: str, singer_id: int = 0,
+                    sample_rate: int = SAMPLE_RATE):
+        """Yield int16 chunks of the whole song as the vocoder decodes
+        them: the melody of every sentence first (under _melody_lock, as
+        synthesize_song runs it), then the 0.2 s silent lead-in of
+        concat_with_delay, then each sentence's stream_score windows. A
+        stream has the fixed STREAM_GAIN, not the per-sentence peak
+        normalisation: it cannot revisit samples already sent."""
+        svs = self.synthesizers.get(singer_id, self.synthesizers[0])
+        sentences = split_sentences(lyrics,
+                                    replacements=self.lyric_replacements)
+        _, scores = self._scores(svs, sentences)
+        yield np.zeros(int(0.2 * sample_rate), np.int16)
+        for score in scores:
+            yield from svs.stream_score(score)
 
 
 def tiny_configs(src_vocab: int) -> tuple[MelodyConfig, SVSConfig]:
@@ -289,14 +487,18 @@ def build_melody_generator(tiny: bool = False, seed: int = 0, device=None,
 
 
 def build_default_song_synthesizer(tiny: bool = False, n_speakers: int = 3,
-                                   seed: int = 0, device=None
-                                   ) -> SongSynthesizer:
+                                   seed: int = 0, device=None,
+                                   fused: bool = False):
     """Random-initialised full pipeline (no trained weights ship with the
-    repository). Runs on ``device`` (default cuda)."""
+    repository). Runs on ``device`` (default cuda). ``fused`` returns the
+    FusedSongSynthesizer (pipeline/fused.py) over the same models."""
     device = resolve_device(device)
-    return SongSynthesizer(build_melody_generator(tiny, seed, device),
-                           build_svs_synthesizers(tiny, n_speakers, seed,
-                                                  device))
+    melody = build_melody_generator(tiny, seed, device)
+    synths = build_svs_synthesizers(tiny, n_speakers, seed, device)
+    if fused:
+        from .fused import FusedSongSynthesizer
+        return FusedSongSynthesizer(melody, synths)
+    return SongSynthesizer(melody, synths)
 
 
 def build_svs_synthesizers(tiny: bool = False, n_speakers: int = 3,

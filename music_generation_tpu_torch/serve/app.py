@@ -10,27 +10,35 @@ wire contract as the reference controllers:
     with canned demo songs when ./resources holds them
     errors: 201 missing input, 202 length guard (1..500) on the given or
     generated lyrics, 203 synth error
+  POST /synthesis_music_stream (same body) -> audio/wav with
+    Transfer-Encoding: chunked: a header of unknown length, then one HTTP
+    chunk per vocoder decode window; an error before the first audio byte
+    answers the JSON contract above
   POST /profile?seconds=N&dir=NAME -> a torch.profiler trace of live
     traffic (every thread) under <log_dir>/profile/NAME/
-  GET /healthz -> {ok: true}
+  GET /syn_outputs/<path> -> a file under ./syn_outputs
+  GET /healthz -> {ok: true[, batching: {...}][, fused: true]}
 
 Run: python -m music_generation_tpu_torch.serve.app --port 5005
      [--variant svs_v6_multispeaker|svs_v5|svs_v5_multispeaker|melody_v2]
      [--decoder hifigan|istft|mb_istft] [--nsf] [--f0 predict|score]
      [--f0-residual] [--decoder-bf16] [--checkpoint-dir DIR]
-     [--lyric-model t5|gpt2] [--cert-file PEM [--key-file PEM]] [--tiny]
-     [--device cpu]
+     [--lyric-model t5|gpt2] [--fused] [--warmup]
+     [--cert-file PEM [--key-file PEM]] [--tiny] [--device cpu]
 --checkpoint-dir (or the config's checkpoint_dir) loads a pipeline
 directory (compat.checkpoints) before serving; a certificate (--cert-file
-or the config's cert_file_path) serves HTTPS. --variant v1 and v1_model,
-and MUSIC_BACKEND=new, exit at startup: the shell backend and the
-TeleMelody melody are not ported yet.
+or the config's cert_file_path) serves HTTPS. --fused serves a lone
+request through pipeline/fused.py and concurrent ones through the staged
+path and its batcher; --warmup answers one song before serving. --variant
+v1 and v1_model, and MUSIC_BACKEND=new, exit at startup: the shell
+backend and the TeleMelody melody are not ported yet.
 """
 
 from __future__ import annotations
 
 import argparse
 import base64
+import itertools
 import json
 import logging
 import math
@@ -42,7 +50,9 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 from urllib.parse import parse_qs, urlparse
 
+from ..audio.wav import streaming_wav_header
 from ..config import ServiceConfig
+from ..utils.observability import profile_trace
 from .variants import (VARIANTS, canned_response, check_ported,
                        variant_song_synthesizer)
 
@@ -62,18 +72,32 @@ def make_logger(cfg: ServiceConfig) -> logging.Logger:
     return logger
 
 
+WARMUP_TEXT = "你好世界。小小的天有大大的梦想。隐形的翅膀。带我飞过绝望"
+
+
 class MusicGenerationService:
-    """Transport-independent request handling (unit-testable)."""
+    """Transport-independent request handling (unit-testable).
+
+    ``fused_synthesizer`` (pipeline/fused.py), when given, is picked by
+    load: a request alone in flight takes it, concurrent requests take the
+    staged path so that the SVS batcher can coalesce them.
+    ``path_counts`` counts the requests each path answered."""
 
     def __init__(self, song_synthesizer, lyric_generator=None,
                  cfg: Optional[ServiceConfig] = None,
                  logger: Optional[logging.Logger] = None,
-                 canned_dir: Optional[str] = None):
+                 canned_dir: Optional[str] = None,
+                 fused_synthesizer=None):
         self.songs = song_synthesizer
         self.lyrics = lyric_generator
         self.canned_dir = canned_dir  # melody_v2's canned demo songs
         self.cfg = cfg or ServiceConfig()
         self.logger = logger or make_logger(self.cfg)
+        self.fused = fused_synthesizer
+        self.path_counts = {"fused": 0, "staged": 0}
+        self.warmup = None  # build_service's warm_up outcome (--warmup)
+        self._inflight = 0
+        self._inflight_lock = threading.Lock()
         self._lock = threading.Lock()
         self._profile_lock = threading.Lock()  # one profiler trace at a time
         # cross-request SVS micro-batching: concurrent requests coalesce
@@ -125,6 +149,44 @@ class MusicGenerationService:
                           "message": "生成失败，传入文本必须大于1个字符，小于500个字符！"}
         return text, None
 
+    def stream_synthesis(self, data: dict):
+        """The streaming model path: a generator of int16 numpy chunks
+        (SongSynthesizer.stream_song: the melody, the 0.2 s lead-in, then
+        one chunk per vocoder decode window), or a response dict (an error
+        or a canned keyword song) to send as plain JSON."""
+        text, resp = self._resolve_text(data)
+        if resp is not None:
+            return resp
+        try:
+            singer_id = int(data.get("singer_id", 0) or 0)
+        except (TypeError, ValueError):
+            return {"code": 203, "message": "服务器错误，歌声合成出错！"}
+        return self.songs.stream_song(text, singer_id=singer_id)
+
+    def _synthesize(self, text: str, singer_id: int):
+        with self._inflight_lock:
+            self._inflight += 1
+            alone = self._inflight == 1
+            path = ("fused" if self.fused is not None
+                    and (alone or self._batcher is None) else "staged")
+            self.path_counts[path] += 1
+        try:
+            if path == "fused":
+                with self._lock:
+                    return self.fused.synthesize_song(text,
+                                                      singer_id=singer_id)
+            if self._batcher is not None:
+                svs = self.songs.synthesizers.get(
+                    singer_id, self.songs.synthesizers[0])
+                return self.songs.synthesize_song(
+                    text, singer_id=singer_id,
+                    svs_batch_fn=self._batcher.fn_for(svs))
+            with self._lock:
+                return self.songs.synthesize_song(text, singer_id=singer_id)
+        finally:
+            with self._inflight_lock:
+                self._inflight -= 1
+
     def _handle_model_path(self, data: dict) -> dict:
         text, resp = self._resolve_text(data)
         if resp is not None:
@@ -134,16 +196,7 @@ class MusicGenerationService:
             # JSON the wire contract promises, not a raw 500
             singer_id = int(data.get("singer_id", 0) or 0)
             t0 = time.time()
-            if self._batcher is not None:
-                svs = self.songs.synthesizers.get(
-                    singer_id, self.songs.synthesizers[0])
-                result = self.songs.synthesize_song(
-                    text, singer_id=singer_id,
-                    svs_batch_fn=self._batcher.fn_for(svs))
-            else:
-                with self._lock:
-                    result = self.songs.synthesize_song(
-                        text, singer_id=singer_id)
+            result = self._synthesize(text, singer_id)
             b64 = base64.b64encode(result.wav_bytes).decode()
             self.logger.info("音频合成耗时：%.3f 秒。", time.time() - t0)
             return {"code": 200, "message": "success！",
@@ -154,24 +207,23 @@ class MusicGenerationService:
 
 
 def capture_profile(trace_dir: str, seconds: float) -> str:
-    """Trace every thread of the process with torch.profiler for
-    ``seconds`` (the device too when a GPU is present) and write a Chrome
-    trace into ``trace_dir``. Returns the trace file's path."""
-    import torch
-    from torch._C._profiler import _ExperimentalConfig
-    from torch.profiler import ProfilerActivity, profile
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    # requests run on the HTTP server's threads, not on the capturing one
-    with profile(activities=activities, experimental_config=
-                 _ExperimentalConfig(profile_all_threads=True)) as prof:
+    """Trace every thread of the process for ``seconds``
+    (utils.observability.profile_trace) into ``trace_dir``. Returns the
+    trace file's path."""
+    with profile_trace(trace_dir) as path:
         time.sleep(seconds)
-    os.makedirs(trace_dir, exist_ok=True)
-    path = os.path.join(trace_dir,
-                        time.strftime("trace_%Y%m%d_%H%M%S.json"))
-    prof.export_chrome_trace(path)
     return path
+
+
+def syn_outputs_file(url_path: str) -> Optional[str]:
+    """The file under ./syn_outputs that GET /syn_outputs/<rel> names, or
+    None when it is missing or its normalised path leaves the directory."""
+    rel = os.path.normpath(url_path[len("/syn_outputs/"):])
+    base = os.path.abspath("./syn_outputs")
+    full = os.path.abspath(os.path.join(base, rel))
+    if full.startswith(base + os.sep) and os.path.isfile(full):
+        return full
+    return None
 
 
 def make_http_server(service: MusicGenerationService, host: str, port: int,
@@ -198,9 +250,28 @@ def make_http_server(service: MusicGenerationService, host: str, port: int,
                 payload = {"ok": True}
                 if service._batcher is not None:
                     payload["batching"] = dict(service._batcher.stats)
+                if service.fused is not None:
+                    payload["fused"] = True
                 self._send_json(payload)
+            elif self.path.startswith("/syn_outputs/"):
+                self._static(syn_outputs_file(self.path))
             else:
                 self._send_json({"code": 404, "message": "not found"}, 404)
+
+        def _static(self, full: Optional[str]):
+            """A stored output (the reference's demo UI reads them)."""
+            if full is None:
+                self._send_json({"code": 404, "message": "not found"}, 404)
+                return
+            with open(full, "rb") as f:
+                body = f.read()
+            self.send_response(200)
+            self.send_header("Content-Type",
+                             "audio/wav" if full.endswith(".wav")
+                             else "text/plain; charset=utf-8")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
 
         def _profile(self):
             """Capture a trace of live traffic; ?seconds=N (bounded to
@@ -255,7 +326,7 @@ def make_http_server(service: MusicGenerationService, host: str, port: int,
             if route == "/profile":
                 self._profile()
                 return
-            if route != "/synthesis_music":
+            if route not in ("/synthesis_music", "/synthesis_music_stream"):
                 self._send_json({"code": 404, "message": "not found"}, 404)
                 return
             length = int(self.headers.get("Content-Length", 0))
@@ -271,7 +342,50 @@ def make_http_server(service: MusicGenerationService, host: str, port: int,
                 data = {}
             if not isinstance(data, dict):
                 data = {}
-            self._send_json(service.handle_synthesis(data))
+            if route == "/synthesis_music_stream":
+                self._stream(data)
+            else:
+                self._send_json(service.handle_synthesis(data))
+
+        def _chunk(self, b: bytes):
+            self.wfile.write(b"%X\r\n%s\r\n" % (len(b), b))
+
+        def _stream(self, data: dict):
+            """Chunked audio/wav, one HTTP chunk per decode window. The
+            stream's first piece (the lead-in, after the melody) is taken
+            before any byte is sent, so an error up to there answers the
+            JSON contract; a later one is logged and ends the stream."""
+            gen = service.stream_synthesis(data)
+            if isinstance(gen, dict):
+                self._send_json(gen)
+                return
+            try:
+                first = next(gen)
+            except Exception:
+                service.logger.error("stream failed:\n%s",
+                                     traceback.format_exc())
+                self._send_json({"code": 203,
+                                 "message": "服务器错误，歌声合成出错！"})
+                return
+            self.send_response(200)
+            self.send_header("Content-Type", "audio/wav")
+            self.send_header("Transfer-Encoding", "chunked")
+            self.send_header("Access-Control-Allow-Origin", "*")
+            self.end_headers()
+            try:
+                self._chunk(streaming_wav_header())
+                for piece in itertools.chain([first], gen):
+                    if len(piece):
+                        self._chunk(piece.tobytes())
+            except Exception:
+                service.logger.error("stream failed mid-flight:\n%s",
+                                     traceback.format_exc())
+                gen.close()
+            finally:
+                try:
+                    self.wfile.write(b"0\r\n\r\n")
+                except OSError:
+                    pass
 
         def log_message(self, fmt, *args):
             service.logger.info("%s - %s", self.address_string(), fmt % args)
@@ -335,6 +449,17 @@ def configure(argv=None):
     parser.add_argument("--key-file", default=None,
                         help="PEM private key for the certificate (omit "
                              "when the key is appended to the cert PEM)")
+    parser.add_argument("--fused", action="store_true",
+                        help="serve a request alone in flight through the "
+                             "fused path (pipeline/fused.py: one "
+                             "device-to-host copy per request); concurrent "
+                             "requests take the staged path and its batcher. "
+                             "Ignored, with a warning, by melody_v2, whose "
+                             "melody has no whole-song form")
+    parser.add_argument("--warmup", action="store_true",
+                        help="answer one song (and, with --fused, the "
+                             "staged path too) before serving, so that the "
+                             "first request finds its buckets warm")
     parser.add_argument("--device", default="cuda",
                         help="torch device the models run on (default cuda; "
                              "raises when no GPU is present)")
@@ -392,26 +517,68 @@ def build_songs(args, cfg: ServiceConfig, seed: int = 0):
     return songs
 
 
+def warm_up(service: MusicGenerationService) -> dict:
+    """One song request of WARMUP_TEXT through the service (the fused path
+    when it is on, since it is alone), then, with a fused path, the staged
+    path that concurrent requests take: {"code", "request_s"[,
+    "staged_s"]}, each logged."""
+    t0 = time.time()
+    out = service.handle_synthesis({"text": WARMUP_TEXT})
+    row = {"code": out.get("code"), "request_s": time.time() - t0}
+    service.logger.info("warmup request code=%s in %.3f s", row["code"],
+                        row["request_s"])
+    if service.fused is not None:
+        t0 = time.time()
+        service.songs.synthesize_song(WARMUP_TEXT)
+        row["staged_s"] = time.time() - t0
+        service.logger.info("staged-path warmup in %.3f s", row["staged_s"])
+    return row
+
+
+def build_service(args, cfg: ServiceConfig) -> MusicGenerationService:
+    """The service main() serves, from configure()'s (args, cfg): the song
+    pipeline (build_songs), the lyric LM, the fused path under --fused,
+    and the --warmup request, whose outcome stays as ``service.warmup``."""
+    logger = make_logger(cfg)
+    from ..models.lyrics import build_lyric_generator
+    songs = build_songs(args, cfg)
+    lyrics = build_lyric_generator(args.lyric_model, tiny=cfg.tiny,
+                                   device=args.device)
+    fused = None
+    if args.fused:
+        if hasattr(songs.melody, "song_tensors"):
+            from ..pipeline.fused import FusedSongSynthesizer
+            fused = FusedSongSynthesizer(
+                songs.melody, songs.synthesizers,
+                lyric_replacements=songs.lyric_replacements)
+            logger.info("fused path on (a request alone in flight)")
+        else:
+            logger.warning("--fused needs the transformer melody (variant "
+                           "%s uses %s): ignored", args.variant,
+                           type(songs.melody).__name__)
+    service = MusicGenerationService(
+        songs, lyrics, cfg, logger,
+        canned_dir=VARIANTS[args.variant].canned_dir,
+        fused_synthesizer=fused)
+    if args.warmup:
+        service.warmup = warm_up(service)
+    return service
+
+
 def main(argv=None):
     args, cfg = configure(argv)
     logger = make_logger(cfg)
     logger.info("loading models (variant=%s, decoder=%s, nsf=%s, f0=%s, "
                 "f0_residual=%s, decoder_bf16=%s, tiny=%s, lyric model=%s, "
-                "device=%s)...", args.variant, args.decoder, args.nsf,
-                args.f0, args.f0_residual, args.decoder_bf16, cfg.tiny,
-                args.lyric_model, args.device)
+                "fused=%s, device=%s)...", args.variant, args.decoder,
+                args.nsf, args.f0, args.f0_residual, args.decoder_bf16,
+                cfg.tiny, args.lyric_model, args.fused, args.device)
     import torch
     # full float32, the precision the port is held to against the JAX
     # package (cuDNN would otherwise run the convolutions in TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from ..models.lyrics import build_lyric_generator
-    songs = build_songs(args, cfg)
-    lyrics = build_lyric_generator(args.lyric_model, tiny=cfg.tiny,
-                                   device=args.device)
-    service = MusicGenerationService(songs, lyrics, cfg, logger,
-                                     canned_dir=VARIANTS[args.variant]
-                                     .canned_dir)
+    service = build_service(args, cfg)
     cert = cfg.cert_file_path
     server = make_http_server(service, cfg.host, cfg.port, cert_file=cert,
                               key_file=args.key_file)

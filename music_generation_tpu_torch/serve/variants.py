@@ -57,7 +57,7 @@ def check_ported(spec: VariantSpec) -> None:
     if spec.backend == "shell":
         raise NotImplementedError(
             f"variant {spec.name}: the shell backend (ollama/DiffRhythm "
-            f"pipeline, serve/modes.py, serve/proxy.py) is not ported yet "
+            f"pipeline, serve/modes.py) is not ported yet "
             f"(ROADMAP.md Queue 1 item 9)")
     if spec.melody == "telemelody" or spec.accompaniment:
         raise NotImplementedError(
