@@ -96,13 +96,33 @@ Phases, each fatal on failure (no exception is caught):
               receptive field in frames against the halo; peak memory of a
               16-sentence batch at the 1984-frame bucket, monolithic and
               chunked
+ 13. v1_model and SVS probes  serve.app --variant v1_model at full width
+              (two MelodyConfig() TeleMelody twins, top-k sampled decodes,
+              the three SVSConfig() singers of the serve phase's seed, the
+              rendered MIDI accompaniment mixed under the vocal): a
+              4-sentence text cold and twice warm over HTTP, a warm
+              request's stage timings (the accompaniment's own), launches
+              and busy share; the mixed song against the same request's
+              vocal alone (same length and notes, other samples); the twins
+              on the card against the CPU (teacher-forced log-probs,
+              get_melody on shared Gumbel draws, tokens equal up to the
+              CPU's first near tie); the CLI's --score at full width;
+              infer_fake, copy_synthesis and voice_conversion (gin 256,
+              g_src != g_tgt) on [2, 512, 513] card against CPU, and
+              g_src == g_tgt giving z back; SVSConfig(autoencoder=False)
+              infer card against CPU; a plain reference .pth written from
+              random weights through tools/torch_import_pipeline.py --pth
+              --no-autoencoder into --checkpoint-dir, every served tensor
+              equal to the file's, one request served; one plain full-width
+              training step with --durations mas (MAS twice, no loss_spec)
 Launch counts are zeroed just before each main path and read just after
 it: phases 3-4 (the served slices), phase 5 (the variants, which align
 nothing: no MAS launch, kernel or plain), phase 8 (training), each
 decoder's training steps in phase 10, phase 11's training steps and its
-served configurations, and phase 12 (which aligns nothing). The kernels line
-reports the launches of phases 8 and 11's training. The lyric LMs launch
-no hand-written kernel. All phases run in full float32 (TF32 is off for
+served configurations, phase 12 (which aligns nothing), and phase 13's
+served paths (none) and its training step. The kernels line reports the
+launches of phases 8, 11 and 13's training. The lyric LMs and TeleMelody
+launch no hand-written kernel. All phases run in full float32 (TF32 is off for
 matmuls and cuDNN convolutions), except phase 11's --decoder-bf16
 decoders, which run in bfloat16. The last stdout line is the result JSON;
 it is printed only when every phase passed. Exits non-zero without a CUDA
@@ -327,7 +347,10 @@ def http_service(songs, lyrics=None, canned_dir=None):
 
 def profiled(fn) -> dict:
     """fn() under torch.profiler: its wall, the device's busy time and
-    share, the kernel launches and the heaviest kernels."""
+    share, the kernel launches and the heaviest kernels. The device events
+    are read from the profiler's raw results: key_averages() would first
+    build the host event tree, which took most of a minute for one
+    68k-launch request."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -337,25 +360,28 @@ def profiled(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         profiled_s = time.time() - t0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    return {"profiled_s": profiled_s, "device_busy_s": busy_us / 1e6,
-            "device_busy_share": busy_us / 1e6 / profiled_s,
-            "kernel_launches": sum(e.count for e in kernels),
-            "top_kernels": [{"name": e.key[:80], "count": e.count,
-                             "ms": e.self_device_time_total / 1e3}
-                            for e in top]}
+    kernels = {}                          # name -> [count, ns on the device]
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            row = kernels.setdefault(e.name(), [0, 0])
+            row[0] += 1
+            row[1] += e.duration_ns()
+    if not kernels:
+        raise AssertionError("the profiler recorded no device work")
+    busy_s = sum(ns for _, ns in kernels.values()) / 1e9
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:6]
+    return {"profiled_s": profiled_s, "device_busy_s": busy_s,
+            "device_busy_share": busy_s / profiled_s,
+            "kernel_launches": sum(n for n, _ in kernels.values()),
+            "top_kernels": [{"name": name[:80], "count": n, "ms": ns / 1e6}
+                            for name, (n, ns) in top]}
 
 
 def profile_request(songs, text: str) -> dict:
     """Where one warm request's time goes: SongSynthesizer's stage timings
     (unprofiled), then the same request under torch.profiler."""
     timings = songs.synthesize_song(text).timings
-    return {"melody_s": timings["melody_s"], "svs_s": timings["svs_s"],
-            "total_s": timings["total_s"],
-            **profiled(lambda: songs.synthesize_song(text))}
+    return {**timings, **profiled(lambda: songs.synthesize_song(text))}
 
 
 class StageClock:
@@ -1322,14 +1348,15 @@ def phase_checkpoint(device, gen_state, disc_state, init_decoder,
     return row
 
 
-def decoder_train_steps(device, cfg, hold_mas: bool = False):
-    """DECODER_STEPS full-width GAN steps (B=8, 64 phones, 480 frames,
+def decoder_train_steps(device, cfg, hold_mas: bool = False,
+                        steps: int = DECODER_STEPS):
+    """``steps`` full-width GAN steps (B=8, 64 phones, 480 frames,
     --durations mas) with ``cfg``: losses finite, every submodule moved,
     the MAS kernel twice per step and the plain version never; ms per warm
-    step and peak memory. With ``hold_mas`` the kernel is also held bit for
-    bit against the plain version on the first step's neg_cent, and the
-    trained (generator, discriminator) states are returned beside the
-    row."""
+    step (none for one step) and peak memory. With ``hold_mas`` the kernel
+    is also held bit for bit against the plain version on the first step's
+    neg_cent, and the trained (generator, discriminator) states are
+    returned beside the row."""
     import torch
     from music_generation_tpu_torch.ops import (maximum_path,
                                                 maximum_path_torch,
@@ -1360,7 +1387,7 @@ def decoder_train_steps(device, cfg, hold_mas: bool = False):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ms, losses = [], []
-    for i in range(DECODER_STEPS):
+    for i in range(steps):
         batch = to_device(synthetic_batch(cfg, batch=TRAIN_BATCH,
                                           t_phones=phones, t_frames=frames,
                                           seed=i), device)
@@ -1380,7 +1407,7 @@ def decoder_train_steps(device, cfg, hold_mas: bool = False):
         losses.append({k: v for k, v in values.items()
                        if k.startswith("loss")})
     launches, plain = maximum_path.kernel_launches, maximum_path.plain_calls
-    if launches != 2 * DECODER_STEPS or plain:
+    if launches != 2 * steps or plain:
         raise AssertionError(f"{cfg.decoder_type}: MAS kernel {launches} "
                              f"launches, plain {plain}")
     moved = {}
@@ -1394,7 +1421,7 @@ def decoder_train_steps(device, cfg, hold_mas: bool = False):
         raise AssertionError(f"{cfg.decoder_type}: no parameter of {still} "
                              "moved")
     row = {"cold_ms": ms[0], "warm_ms": ms[1:],
-           "ms_per_warm_step": float(np.median(ms[1:])),
+           "ms_per_warm_step": float(np.median(ms[1:])) if ms[1:] else None,
            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
            "mas_launches": launches, "mas_plain_calls": plain,
            "losses_first_last": [losses[0], losses[-1]]}
@@ -2174,6 +2201,455 @@ def phase_served_surface(device) -> dict:
     return rows
 
 
+# ---- phase 13: v1_model and the SVS probes --------------------------------
+
+V1_TEXT = REQUESTS[0]["text"]     # 4 sentences, 44 characters
+SCORE_LINE = ("t|小小的天有大大的梦想|C4 D4 E4 F4 G4 A4 G4 F4 E4 D4|"
+              "0.3 0.3 0.4 0.5 0.3 0.3 0.4 0.3 0.3 0.6")
+PROBE_FRAMES = 512                # the probes' spectrogram: [2, 512, 513]
+PROBE_GIN = 256                   # speaker conditioning width
+
+
+class SharedDraws:
+    """Within ``with``, every sample_decode of models/melody/telemelody.py
+    takes its Gumbel draws from one CPU torch.Generator seeded with
+    ``seed`` (moved to the decode's device), one call after another, so
+    that the card and the CPU decode on the same draws. Records each
+    call's tokens, draws and, with ``keep_logits``, each step's log-probs
+    on the host (the CPU side, for its near ties)."""
+
+    def __init__(self, seed: int, keep_logits: bool = False):
+        self.seed, self.keep_logits = seed, keep_logits
+
+    def __enter__(self):
+        import torch
+        from music_generation_tpu_torch.models.melody import beam, telemelody
+        self._orig = telemelody.sample_decode
+        gen = torch.Generator().manual_seed(self.seed)
+        self.calls = []
+
+        def drawn(decode_logits, max_len, *args, top_k=10, **kwargs):
+            call = {"noise": beam.gumbel((max_len, top_k), gen),
+                    "top_k": top_k, "logits": []}
+            self.calls.append(call)
+
+            def logits(tokens, step):
+                out = decode_logits(tokens, step)
+                if self.keep_logits:
+                    call["logits"].append(out[0].detach().cpu())
+                return out
+            tokens = self._orig(logits, max_len, *args, top_k=top_k,
+                                noise=call["noise"], **kwargs)
+            call["tokens"] = tokens.tolist()
+            call["min_len"] = kwargs["min_len"]
+            call["temperature"] = kwargs["temperature"]
+            return tokens
+        telemelody.sample_decode = drawn
+        return self
+
+    def __exit__(self, *exc):
+        from music_generation_tpu_torch.models.melody import telemelody
+        telemelody.sample_decode = self._orig
+
+
+def sample_near_tie(call, step: int) -> bool:
+    """Whether the CPU's sampled step could part from the card's: its top
+    k boundary (log-probs over temperature, EOS barred before min_len) or
+    its Gumbel-max pick within NEAR_TIE."""
+    import torch
+    from music_generation_tpu_torch.models.melody.beam import (
+        NEG_INF, topk_lower_index)
+    from music_generation_tpu_torch.models.melody.vocab import EOS_ID
+    lp = call["logits"][step] / call["temperature"]
+    if step < call["min_len"]:
+        lp = torch.where(torch.arange(lp.shape[-1]) == EOS_ID, NEG_INF, lp)
+    vals, _ = topk_lower_index(lp, call["top_k"] + 1)
+    picks = (vals[:-1] + call["noise"][step]).sort(descending=True).values
+    return bool(vals[-2] - vals[-1] < NEAR_TIE
+                or picks[0] - picks[1] < NEAR_TIE)
+
+
+def telemelody_on_card_and_cpu(gen, sentences) -> dict:
+    """The full-width TeleMelody twins on the card against a CPU copy of
+    the same weights: teacher-forced log-probs of both twins; get_melody
+    of every sentence on the same Gumbel draws (SharedDraws), tokens equal
+    up to the CPU's first near tie, notes and durations equal."""
+    import torch
+    from music_generation_tpu_torch.models.melody import (MelodyConfig,
+                                                          TeleMelodyGenerator)
+    from music_generation_tpu_torch.models.melody.transformer import (
+        causal_mask)
+    t0 = time.time()
+    cpu = TeleMelodyGenerator(MelodyConfig(), seed=SEED, device="cpu")
+    row = {"cpu_build_s": time.time() - t0, "logprobs_rel_l2": {}}
+    for name in ("lyric2rhythm", "trend2melody"):
+        card_model, cpu_model = getattr(gen, name), getattr(cpu, name)
+        same_weights(card_model, cpu_model)
+        rng = np.random.RandomState(VARIANT_SEED)
+        src = torch.from_numpy(rng.randint(4, card_model.cfg.src_vocab,
+                                           (2, 24)))
+        src[1, 15:] = 0
+        tgt = torch.from_numpy(rng.randint(4, card_model.cfg.tgt_vocab,
+                                           (2, 40)))
+        src_mask = (src != 0)[:, None, None, :].to(torch.int32)
+        with torch.no_grad():
+            want = cpu_model(src, tgt, src_mask, causal_mask(40))
+            got = card_model(src.to(gen.device), tgt.to(gen.device),
+                             src_mask.to(gen.device),
+                             causal_mask(40, device=gen.device))
+        row["logprobs_rel_l2"][name] = rel_l2(got, want)
+    if not all(r <= LOGIT_REL_LIMIT for r in row["logprobs_rel_l2"].values()):
+        raise AssertionError(f"TeleMelody card vs CPU: {row}")
+    t0 = time.time()
+    with SharedDraws(VARIANT_SEED, keep_logits=True) as cpu_draws:
+        cpu_out = [cpu.get_melody(s)[1:] for s in sentences]
+    row["cpu_get_melody_s"] = time.time() - t0
+    t0 = time.time()
+    with SharedDraws(VARIANT_SEED) as card_draws:
+        card_out = [gen.get_melody(s)[1:] for s in sentences]
+    torch.cuda.synchronize()
+    row["card_get_melody_s"] = time.time() - t0
+    parted = None
+    for i, (c, g) in enumerate(zip(cpu_draws.calls, card_draws.calls)):
+        if c["tokens"] == g["tokens"]:
+            continue
+        first = next(p for p, (a, b) in
+                     enumerate(zip(c["tokens"], g["tokens"])) if a != b)
+        if not any(sample_near_tie(c, s) for s in range(first + 1)):
+            raise AssertionError(f"TeleMelody decode {i} parts at step "
+                                 f"{first} with no near tie on the CPU")
+        parted = {"decode": i, "step": first}
+        break
+    if parted is None and card_out != cpu_out:
+        raise AssertionError(f"get_melody card {card_out} != CPU {cpu_out}")
+    row.update(decodes=len(cpu_draws.calls),
+               decode_steps=[len(c["tokens"]) for c in cpu_draws.calls],
+               parted_at_near_tie=parted,
+               notes_per_sentence=[len(p) for _, p in cpu_out])
+    log(f"v1_model phase: TeleMelody log-probs card vs CPU "
+        f"{json.dumps(row['logprobs_rel_l2'])}; get_melody of "
+        f"{len(sentences)} sentences ({row['decodes']} sampled decodes on "
+        f"shared draws) identical" + ("" if parted is None else
+                                      f" up to the CPU's near tie {parted}"))
+    return row
+
+
+def v1_accompaniment(songs) -> dict:
+    """The same request with and without the accompaniment (the melody's
+    and the singer's draws restored between them): the same notes and
+    length, other samples."""
+    from scipy.io import wavfile
+    svs = songs.synthesizers[0]
+    states = (songs.melody.gen.generator.get_state(),
+              svs.generator.get_state())
+    mixed = songs.synthesize_song(V1_TEXT)
+    songs.melody.gen.generator.set_state(states[0])
+    svs.generator.set_state(states[1])
+    songs.mix_accompaniment = False
+    try:
+        vocal = songs.synthesize_song(V1_TEXT)
+    finally:
+        songs.mix_accompaniment = True
+    _, a = wavfile.read(io.BytesIO(mixed.wav_bytes))
+    _, v = wavfile.read(io.BytesIO(vocal.wav_bytes))
+    if mixed.notes != vocal.notes or len(a) != len(v):
+        raise AssertionError(f"mixed song: {len(a)} samples, notes "
+                             f"{mixed.notes}; vocal {len(v)}, {vocal.notes}")
+    if np.array_equal(a, v):
+        raise AssertionError("the mixed song equals the vocal alone")
+    return {"samples": len(a), "accompaniment_s":
+            mixed.timings["accompaniment_s"],
+            "samples_changed_share": float(np.mean(a != v)),
+            "mixed_timings": mixed.timings, "vocal_timings": vocal.timings}
+
+
+def score_cli(device) -> dict:
+    """python -m music_generation_tpu_torch.pipeline out.wav --score LINE at
+    full width: an int16 22,050 Hz WAV at least the score's length."""
+    from scipy.io import wavfile
+    from music_generation_tpu_torch.pipeline.__main__ import main as cli
+    out = SCRATCH / "score.wav"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.time()
+    cli([str(out), "--score", SCORE_LINE, "--device", str(device)])
+    seconds = time.time() - t0
+    rate, pcm = wavfile.read(out)
+    want = sum(float(x) for x in SCORE_LINE.split("|")[3].split())
+    if rate != 22050 or pcm.dtype != np.int16 or len(pcm) < 0.5 * want * rate:
+        raise AssertionError(f"--score: rate {rate}, {pcm.dtype}, "
+                             f"{len(pcm)} samples for {want} s")
+    if not np.any(pcm != 0):
+        raise AssertionError("--score wrote silence")
+    return {"cli_s": seconds, "audio_s": len(pcm) / rate,
+            "score_s": want, "peak": int(np.abs(pcm.astype(np.int32)).max())}
+
+
+def excite_zero_parameters(model, seed: int) -> None:
+    """Give every parameter that starts at exactly zero (the flows' output
+    projections, biases) small random values, so that a random-init flow is
+    not the identity and the speaker conditioning acts."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            if not p.any():
+                p.copy_(0.02 * torch.randn(p.shape, generator=gen))
+
+
+def svs_probes_card_vs_cpu(device) -> dict:
+    """infer_fake (cut to 384 frames), copy_synthesis and voice_conversion
+    (g_src != g_tgt) of a full-width SVSConfig(gin_channels=256) on [2,
+    512, 513] spectrograms: card against CPU, same weights and posterior
+    noise, within 1e-4 relative L2; on the card, voice_conversion with
+    g_tgt == g_src gives z back within 1e-4."""
+    import torch
+    from music_generation_tpu_torch.models.svs import SVSConfig, VISinger
+    cfg = SVSConfig(gin_channels=PROBE_GIN)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED + 4)
+        cpu_model = VISinger(cfg).eval()
+    excite_zero_parameters(cpu_model, SEED + 4)
+    card_model = copy.deepcopy(cpu_model).to(device)
+    rng = np.random.RandomState(SEED + 4)
+    b, f = 2, PROBE_FRAMES
+    x = {"spec": np.abs(rng.randn(b, f, cfg.spec_channels)),
+         "y_lengths": np.array([f, f - 105]),
+         "noise": rng.randn(b, f, cfg.inter_channels),
+         "g_src": rng.randn(b, 1, PROBE_GIN),
+         "g_tgt": rng.randn(b, 1, PROBE_GIN)}
+    x = {k: torch.from_numpy(v.astype(np.float32 if v.dtype.kind == "f"
+                                      else np.int64)) for k, v in x.items()}
+    probes = {
+        "infer_fake": lambda m, a: m.infer_fake(
+            a["spec"], a["y_lengths"], max_len=384, noise=a["noise"]),
+        "copy_synthesis": lambda m, a: m.copy_synthesis(
+            a["spec"], a["y_lengths"], noise=a["noise"]),
+        "voice_conversion": lambda m, a: m.voice_conversion(
+            a["spec"], a["y_lengths"], a["g_src"], a["g_tgt"],
+            noise=a["noise"]),
+    }
+    row = {"shape": [b, f, cfg.spec_channels], "gin_channels": PROBE_GIN}
+    on_card = {k: v.to(device) for k, v in x.items()}
+    card_out = {}
+    for name, probe in probes.items():
+        with torch.no_grad():
+            t0 = time.time()
+            want = probe(cpu_model, x)
+            cpu_s = time.time() - t0
+            probe(card_model, on_card)                  # warm
+            torch.cuda.synchronize()
+            t0 = time.time()
+            got = card_out[name] = probe(card_model, on_card)
+            torch.cuda.synchronize()
+        z_got, z_want = ((got[2][2], want[2][2]) if name ==
+                         "voice_conversion" else (got[2], want[2]))
+        row[name] = {"audio_rel_l2": rel_l2(got[0], want[0]),
+                     "z_rel_l2": rel_l2(z_got, z_want),
+                     "card_s": time.time() - t0, "cpu_s": cpu_s,
+                     "samples": int(got[0].shape[1])}
+        if not (torch.isfinite(got[0]).all()
+                and row[name]["audio_rel_l2"] <= LOGIT_REL_LIMIT
+                and row[name]["z_rel_l2"] <= LOGIT_REL_LIMIT):
+            raise AssertionError(f"{name} card vs CPU: {row[name]}")
+    with torch.no_grad():
+        _, _, (z, _, z_same) = card_model.voice_conversion(
+            on_card["spec"], on_card["y_lengths"], on_card["g_src"],
+            on_card["g_src"], noise=on_card["noise"])
+    z, _, z_other = card_out["voice_conversion"][2]
+    row["voice_conversion_same_speaker_rel_l2"] = rel_l2(z_same, z)
+    row["voice_conversion_other_speaker_rel_l2"] = rel_l2(z_other, z)
+    if not row["voice_conversion_same_speaker_rel_l2"] <= LOGIT_REL_LIMIT:
+        raise AssertionError(f"voice_conversion g_src == g_tgt: z_hat vs z "
+                             f"{row['voice_conversion_same_speaker_rel_l2']}")
+    return row
+
+
+def reference_state_dict_from_port(model, cfg) -> dict:
+    """A state_dict in the reference's SynthesizerTrn names and layouts
+    (weight norm as weight_g / weight_v, LayerNorm as gamma / beta) that
+    holds ``model``'s weights: compat.torch_import's key table read
+    backwards. Written from random weights, it stands in for a reference
+    .pth; nothing is downloaded."""
+    import torch
+    from music_generation_tpu_torch.compat import torch_import
+    from music_generation_tpu_torch.compat.from_jax import _port_name
+    rows = []
+
+    class Keys(torch_import._Mapper):
+        def __init__(self):
+            self.sd, self.params, self.used = {}, {}, set()
+
+        def copy(self, torch_key, flax_path, transform=None):
+            rows.append((torch_key, flax_path, "copy"))
+
+        def conv(self, tprefix, fpath, bias=True, weight_norm=False):
+            rows.append((tprefix, fpath + ("kernel",), "conv"))
+
+        def convT(self, tprefix, fpath):
+            rows.append((tprefix, fpath + ("kernel",), "conv"))
+
+    torch_import._flax_tree(Keys(), cfg)
+    params = dict(model.named_parameters())
+    modules = dict(model.named_modules())
+    out = {}
+    for key, path, kind in rows:
+        name = _port_name(path)
+        if kind == "copy":
+            out[key] = params[name].detach().cpu().clone()
+            continue
+        mod = modules[name.rpartition(".")[0]]
+        if getattr(mod, "g", None) is not None:      # weight norm
+            w = mod.effective_weight().detach().cpu()
+            out[f"{key}.weight_v"] = w.clone()
+            out[f"{key}.weight_g"] = w.flatten(1).norm(dim=1)[:, None, None]
+        else:
+            out[f"{key}.weight"] = mod.weight.detach().cpu().clone()
+        if mod.bias is not None:
+            out[f"{key}.bias"] = mod.bias.detach().cpu().clone()
+    return out
+
+
+def plain_reference_served(device) -> dict:
+    """A plain (non-AE) reference .pth written from random full-width
+    weights through tools/torch_import_pipeline.py --pth --no-autoencoder,
+    into serve.app's construction with --checkpoint-dir: singer 0 rebuilt
+    as the plain VISinger, every served tensor equal to the file's, one
+    request served."""
+    import torch
+    from music_generation_tpu_torch.models.svs import SVSConfig, VISinger
+    from music_generation_tpu_torch.serve import app
+    from tools.torch_import_pipeline import import_pth
+    cfg = SVSConfig(autoencoder=False)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED + 5)
+        model = VISinger(cfg)
+    pth = SCRATCH / "G_plain.pth"
+    pth.parent.mkdir(parents=True, exist_ok=True)
+    torch.save({"model": reference_state_dict_from_port(model, cfg),
+                "iteration": 0}, pth)
+    t0 = time.time()
+    written = import_pth([str(pth)], str(SCRATCH / "plain"),
+                         autoencoder=False)
+    row = {"import_s": time.time() - t0}
+    args, scfg = app.configure(["--checkpoint-dir", str(SCRATCH / "plain"),
+                                "--device", str(device)])
+    scfg.n_speakers = 1
+    t0 = time.time()
+    songs = app.build_songs(args, scfg, seed=SEED)
+    torch.cuda.synchronize()
+    row["build_and_load_s"] = time.time() - t0
+    svs = songs.synthesizers[0]
+    saved = torch.load(written[0], weights_only=True)
+    if svs.cfg.autoencoder or not states_equal(state_on_host(svs.model),
+                                               saved):
+        raise AssertionError("the served singer is not the plain file's")
+    row["tensors"] = len(saved)
+    row["served"] = serve_once(songs, REQUESTS[1]["text"])
+    return row
+
+
+def phase_v1_model(device) -> dict:
+    """Phase 13: serve.app --variant v1_model at full width (two
+    MelodyConfig() TeleMelody twins, the three SVSConfig() singers from the
+    serve phase's seed): a 4-sentence text cold and twice warm over HTTP,
+    every sentence's notes and durations checked, a warm request's stage
+    timings, launches and busy share; the song mixed against the vocal
+    alone; the twins on the card against the CPU; the CLI's --score; the
+    SVS probes card against CPU; the plain VISinger's infer card against
+    CPU, a plain reference .pth through the import tool into the server;
+    one plain full-width training step with MAS durations (the kernel
+    twice)."""
+    import shutil
+
+    import torch
+    from music_generation_tpu_torch.models.svs import SVSConfig
+    from music_generation_tpu_torch.ops import maximum_path
+    from music_generation_tpu_torch.pipeline.synthesis import split_sentences
+    from music_generation_tpu_torch.serve import app
+    start = time.time()
+    maximum_path.kernel_launches = 0
+    maximum_path.plain_calls = 0
+    rows, steps = {}, {}
+    try:
+        t0 = time.time()
+        args, cfg = app.configure(["--variant", "v1_model", "--device",
+                                   str(device)])
+        songs = app.build_songs(args, cfg, seed=SEED)
+        torch.cuda.synchronize()
+        rows["build_s"] = time.time() - t0
+        if not songs.mix_accompaniment:
+            raise AssertionError("v1_model does not mix its accompaniment")
+        recorder = MelodyRecorder(songs.melody, "generate")
+        served = {"chars": len(V1_TEXT)}
+        with http_service(songs) as (_, port):
+            for kind in ("cold", "warm", "warm_2"):
+                recorder.sentences.clear()
+                t0 = time.time()
+                out = _post(port, {"text": V1_TEXT})
+                served[f"{kind}_s"] = time.time() - t0
+                served["audio_s"] = check_song(f"v1_model {kind}", out)
+                check_variant_melody("v1_model", recorder.sentences,
+                                     sdp=False)
+        served["sentences"] = [s[0] for s in recorder.sentences]
+        served["notes_per_sentence"] = [len(s[1]) for s in
+                                        recorder.sentences]
+        served["profile"] = profile_request(songs, V1_TEXT)
+        rows["served"] = served
+        steps["served"] = time.time() - start
+        if maximum_path.kernel_launches or maximum_path.plain_calls:
+            raise AssertionError("v1_model's path ran MAS")
+        rows["accompaniment"] = v1_accompaniment(songs)
+        rows["telemelody"] = telemelody_on_card_and_cpu(
+            songs.melody.gen, split_sentences(V1_TEXT))
+        steps["telemelody"] = time.time() - start
+        del songs, recorder
+        torch.cuda.empty_cache()
+        rows["score_cli"] = score_cli(device)
+        steps["score_cli"] = time.time() - start
+        rows["probes"] = svs_probes_card_vs_cpu(device)
+        steps["probes"] = time.time() - start
+        rows["plain_infer_card_vs_cpu_rel_l2"] = visinger_card_vs_cpu(
+            device, SVSConfig(autoencoder=False))
+        rows["plain_reference"] = plain_reference_served(device)
+        steps["plain_reference"] = time.time() - start
+        if maximum_path.kernel_launches or maximum_path.plain_calls:
+            raise AssertionError("the served paths of phase 13 ran MAS")
+    finally:
+        shutil.rmtree(SCRATCH, ignore_errors=True)
+    torch.cuda.empty_cache()
+    train = decoder_train_steps(device, SVSConfig(autoencoder=False),
+                                steps=1)
+    if any("loss_spec" in losses for losses in train["losses_first_last"]):
+        raise AssertionError("the plain VISinger's step has a loss_spec")
+    rows["train_plain"] = train
+    steps["train_plain"] = time.time() - start
+    rows["steps_s"] = steps
+    rows["phase_s"] = time.time() - start
+    sv, pr, tm = rows["served"], rows["probes"], rows["telemelody"]
+    log(f"v1_model phase ({rows['phase_s']:.1f} s): built in "
+        f"{rows['build_s']:.1f} s; request cold {sv['cold_s']:.3f} s, warm "
+        f"{sv['warm_s']:.3f} / {sv['warm_2_s']:.3f} s "
+        f"({sv['audio_s']:.2f} s of audio); warm melody "
+        f"{sv['profile']['melody_s']:.3f} s, svs {sv['profile']['svs_s']:.3f}"
+        f" s, accompaniment {sv['profile']['accompaniment_s']:.3f} s, "
+        f"{sv['profile']['kernel_launches']} launches, busy "
+        f"{sv['profile']['device_busy_share']:.3f}; mixed song "
+        f"{rows['accompaniment']['samples']} samples as the vocal's, "
+        f"{rows['accompaniment']['samples_changed_share']:.3f} of them "
+        f"changed; TeleMelody card vs CPU "
+        f"{json.dumps(tm['logprobs_rel_l2'])}; --score "
+        f"{rows['score_cli']['cli_s']:.1f} s; probes card vs CPU audio "
+        + ", ".join(f"{k} {pr[k]['audio_rel_l2']:.3e}" for k in
+                    ("infer_fake", "copy_synthesis", "voice_conversion"))
+        + f", same speaker z_hat vs z "
+        f"{pr['voice_conversion_same_speaker_rel_l2']:.3e}; plain infer "
+        f"{rows['plain_infer_card_vs_cpu_rel_l2']:.3e}; plain .pth served "
+        f"({rows['plain_reference']['tensors']} tensors equal); plain step "
+        f"{train['cold_ms']:.1f} ms, MAS {train['mas_launches']} launches")
+    log("v1_model phase: " + json.dumps(rows, ensure_ascii=False))
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2205,13 +2681,17 @@ def main() -> int:
     f0_variants = phase_f0_variants(device)
     torch.cuda.empty_cache()
     surface = phase_served_surface(device)
+    torch.cuda.empty_cache()
+    v1_model = phase_v1_model(device)
     record = earlier.pop("record")
     record["launches"] = (train["mas_launches"]
-                          + f0_variants["train"]["mas_launches"])
+                          + f0_variants["train"]["mas_launches"]
+                          + v1_model["train_plain"]["mas_launches"])
     log(json.dumps(earlier | {"train": train, "checkpoint": checkpoint,
                               "decoders": decoders,
                               "f0_variants": f0_variants,
-                              "served_surface": surface},
+                              "served_surface": surface,
+                              "v1_model": v1_model},
                    ensure_ascii=False))
     log(json.dumps({"kernels": [record]}))
     log(json.dumps({"ok": True, "device": {

@@ -1,9 +1,8 @@
 """WAV helpers (host-side, numpy + scipy).
 
-Twin of normalize_int16 / concat_with_delay / write_wav_bytes /
-streaming_wav_header in music_generation_tpu/audio/wav.py: the reference's
-int16 normalize and concatenate conventions, and the header of a WAV
-stream.
+Twin of music_generation_tpu/audio/wav.py: the reference's int16
+normalize, concatenate and mix conventions, WAV files and bytes, the header
+of a WAV stream, and polyphase resampling.
 """
 
 from __future__ import annotations
@@ -33,6 +32,18 @@ def concat_with_delay(wavs: list[np.ndarray], delay_seconds: float = 0.2,
         if wavs else pad
 
 
+def mix(accompaniment: np.ndarray, vocal: np.ndarray,
+        accompaniment_gain: float = 0.8) -> np.ndarray:
+    """The vocal over the accompaniment (the reference's 0.8 * accomp +
+    vocal), renormalised to int16 full scale."""
+    n = max(len(accompaniment), len(vocal))
+    out = np.zeros(n, dtype=np.float64)
+    out[: len(accompaniment)] += accompaniment_gain * np.asarray(
+        accompaniment, np.float64)
+    out[: len(vocal)] += np.asarray(vocal, np.float64)
+    return normalize_int16(out / 32767.0) if out.size else out
+
+
 def write_wav_bytes(wav: np.ndarray, sample_rate: int = SAMPLE_RATE) -> bytes:
     """int16 mono WAV container bytes (the HTTP payload format)."""
     buf = io.BytesIO()
@@ -53,3 +64,23 @@ def streaming_wav_header(sample_rate: int = SAMPLE_RATE, channels: int = 1,
                              byte_rate, block_align, bits),
         b"data", struct.pack("<I", 0xFFFFFFFF),
     ])
+
+
+def write_wav(path: str, wav: np.ndarray,
+              sample_rate: int = SAMPLE_RATE) -> None:
+    wavfile.write(path, sample_rate, np.asarray(wav).astype(np.int16))
+
+
+def read_wav(path: str) -> tuple[int, np.ndarray]:
+    return wavfile.read(path)
+
+
+def resample(wav: np.ndarray, sr_in: int, sr_out: int) -> np.ndarray:
+    """Polyphase resampling from ``sr_in`` to ``sr_out`` Hz."""
+    if sr_in == sr_out:
+        return np.asarray(wav)
+    from math import gcd
+
+    from scipy.signal import resample_poly
+    g = gcd(sr_in, sr_out)
+    return resample_poly(np.asarray(wav, np.float64), sr_out // g, sr_in // g)

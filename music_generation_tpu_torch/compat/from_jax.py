@@ -8,6 +8,10 @@ imports no JAX. Layouts:
   - transposed conv  [K, I, O] -> flipped along K, then [I, O, K]
   - dense            [in, out] -> [out, in]
   - weight norm: (kernel, g) kept as is (the port stores the same pair)
+  - speaker conditioning: the ``cond`` convs flax builds when a module is
+    first called with g (the WaveNets of spec_encoder and spec_flow, the
+    decoder) map onto the ``cond`` convs the port builds for
+    ``gin_channels`` > 0
   - flax GRU/LSTM cells: per-gate dense kernels stacked into torch's
     weight_ih / weight_hh (gates r|z|n, i|f|g|o), the biases flax lacks
     set to zero
@@ -115,10 +119,13 @@ def visinger_state_dict_from_flax(params: dict, cfg: SVSConfig,
                                   strict: bool = True) -> dict:
     """state_dict for the port's VISinger(cfg) from the JAX VISinger tree,
     the decoder of ``cfg.decoder_type`` included (an iSTFT tree's
-    decoder/istft_head too). Strict, the tree must hold every submodule,
+    decoder/istft_head too), without spec_decoder and spec_proj when
+    ``cfg.autoencoder`` is False, with the cond convs when
+    ``cfg.gin_channels`` > 0. Strict, the tree must hold every submodule,
     spec_encoder included; the tree a JAX SVSSynthesizer serves (initialised
-    through infer) has no spec_encoder, so it converts with ``strict``
-    False."""
+    through infer) has no spec_encoder, and flax creates the cond convs
+    only in a tree initialised through a call with g (voice_conversion), so
+    such trees convert with ``strict`` False."""
     with torch.device("meta"):
         model = VISinger(cfg)
     return state_dict_from_flax(params, model, strict=strict)
@@ -153,6 +160,21 @@ def melody_state_dicts_from_flax(note_params: dict, duration_params: dict,
     return (state_dict_from_flax(note_params, notes, melody_rename),
             state_dict_from_flax(duration_params, durations,
                                  melody_rename))
+
+
+def telemelody_state_dicts_from_flax(l2r_params: dict, t2m_params: dict,
+                                     l2r_cfg: MelodyConfig,
+                                     t2m_cfg: MelodyConfig
+                                     ) -> tuple[dict, dict]:
+    """(lyric2rhythm, trend2melody) state_dicts for the port's
+    TeleMelodyGenerator twins, MelodyTransformer(l2r_cfg) and
+    MelodyTransformer(t2m_cfg), through the melody mapper."""
+    out = []
+    for params, cfg in ((l2r_params, l2r_cfg), (t2m_params, t2m_cfg)):
+        with torch.device("meta"):
+            model = MelodyTransformer(cfg)
+        out.append(state_dict_from_flax(params, model, melody_rename))
+    return out[0], out[1]
 
 
 _SUFFIXED = re.compile(r"\b(ln|wi)\.(\d+)\.")

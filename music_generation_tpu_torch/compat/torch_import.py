@@ -16,9 +16,11 @@ to the flax names:
 Reference keys the mapping does not reach are logged; parameters the file
 lacks are left out of the result, so compat.checkpoints.load_params keeps
 them at their init (the reference's tolerant load_checkpoint,
-VISinger/utils/utils.py:33-58). The non-AE ``models.py`` variant is not
-ported (its file has no spec_decoder) and is refused, and so is an ``nsf``
-config: the reference has no excitation convs.
+VISinger/utils/utils.py:33-58). The AE file (``models_ae.py``, with
+spec_decoder) imports into an ``autoencoder`` config and the plain
+``models.py`` file (without it) into ``autoencoder=False``; the other pair
+is refused, naming the flag, and so is an ``nsf`` config: the reference
+has no excitation convs.
 """
 
 from __future__ import annotations
@@ -201,10 +203,11 @@ def _flax_tree(m: _Mapper, cfg: SVSConfig) -> dict:
         m.wavenet(f"{t}.enc", f + ("enc",), 4)
         m.conv(f"{t}.post", f + ("post",))
 
-    m.conv("spec_decoder.pre", ("spec_decoder", "pre"))
-    m.wavenet("spec_decoder.enc", ("spec_decoder", "enc"), 16)
-    m.conv("spec_decoder.proj", ("spec_decoder", "proj"))
-    m.conv("spec_proj", ("spec_proj",))
+    if cfg.autoencoder:
+        m.conv("spec_decoder.pre", ("spec_decoder", "pre"))
+        m.wavenet("spec_decoder.enc", ("spec_decoder", "enc"), 16)
+        m.conv("spec_decoder.proj", ("spec_decoder", "proj"))
+        m.conv("spec_proj", ("spec_proj",))
 
     dec = ("decoder",)
     m.conv("decoder.conv_pre", dec + ("conv_pre",))
@@ -231,7 +234,8 @@ def _flax_tree(m: _Mapper, cfg: SVSConfig) -> dict:
 
 def visinger_state_dict_from_torch(state_dict, cfg: SVSConfig) -> dict:
     """The port's VISinger(cfg) state_dict from a reference
-    ``SynthesizerTrn`` (models_ae) state_dict, or from the reference
+    ``SynthesizerTrn`` state_dict (models_ae.py for an ``autoencoder``
+    config, models.py for ``autoencoder=False``), or from the reference
     trainer's ``{"model": state_dict, "iteration": ...}`` wrapper
     (VISinger/utils/utils.py:61-72)."""
     if isinstance(state_dict.get("model"), dict):
@@ -243,11 +247,14 @@ def visinger_state_dict_from_torch(state_dict, cfg: SVSConfig) -> dict:
         raise ValueError("reference checkpoints have no NSF excitation "
                          "convs (decoder.exc.*): import them into a config "
                          "without nsf")
-    if not any(k.startswith("spec_decoder.") for k in state_dict):
-        raise NotImplementedError(
-            "a checkpoint without spec_decoder is the reference's non-AE "
-            "models.py variant, which the port does not serve yet "
-            "(ROADMAP.md Queue 1 item 2e)")
+    has_ae = any(k.startswith("spec_decoder.") for k in state_dict)
+    if has_ae != cfg.autoencoder:
+        raise ValueError(
+            "the checkpoint is the reference's "
+            + ("AE models_ae.py variant (it has spec_decoder): import it "
+               "with autoencoder=True (no --no-autoencoder)" if has_ae else
+               "non-AE models.py variant (it has no spec_decoder): import "
+               "it with autoencoder=False (--no-autoencoder)"))
     m = _Mapper(state_dict)
     tree = _flax_tree(m, cfg)
     unused = sorted(set(m.sd) - m.used)

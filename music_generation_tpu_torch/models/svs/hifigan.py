@@ -85,7 +85,9 @@ class HiFiGANTrunk(nn.Module):
     by the HiFi-GAN generator and the iSTFT generators (models/svs/istft.py).
     ``trunk`` takes [B, T_frames, C] and returns channels-first
     [B, out_channels, T_frames * prod(rates)] after a final leaky ReLU
-    (slope 0.01)."""
+    (slope 0.01). With ``gin_channels`` > 0 a 1x1 ``cond`` conv of the
+    speaker conditioning g [B, 1, gin] is added after conv_pre (flax builds
+    it when first called with g; the port from the config)."""
 
     def __init__(self, in_channels: int, resblock: str = "1",
                  resblock_kernel_sizes: Sequence[int] = (3, 7, 11),
@@ -93,10 +95,13 @@ class HiFiGANTrunk(nn.Module):
                  ((1, 3, 5),) * 3,
                  upsample_rates: Sequence[int] = (8, 8, 2, 2),
                  upsample_initial_channel: int = 512,
-                 upsample_kernel_sizes: Sequence[int] = (16, 16, 4, 4)):
+                 upsample_kernel_sizes: Sequence[int] = (16, 16, 4, 4),
+                 gin_channels: int = 0):
         super().__init__()
         res_cls = ResBlock1 if resblock == "1" else ResBlock2
         self.conv_pre = Conv1d(in_channels, upsample_initial_channel, 7)
+        self.cond = (Conv1d(gin_channels, upsample_initial_channel, 1)
+                     if gin_channels else None)
         self.up = nn.ModuleList()
         self.res = nn.ModuleList()
         ch = upsample_initial_channel
@@ -115,10 +120,15 @@ class HiFiGANTrunk(nn.Module):
 
     def trunk(self, x: torch.Tensor,
               inject: Optional[Callable[[int, torch.Tensor], torch.Tensor]]
-              = None) -> torch.Tensor:
+              = None, g: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``inject(i, x)``, when given, replaces the activation after
         upsample stage ``i`` (the NSF source of Generator)."""
         x = self.conv_pre(x.transpose(1, 2))
+        if g is not None:
+            if self.cond is None:
+                raise ValueError("speaker conditioning g given to a decoder "
+                                 "built with gin_channels=0")
+            x = x + self.cond(g.transpose(1, 2))
         for i, (up, blocks) in enumerate(zip(self.up, self.res)):
             x = up(F.leaky_relu(x, LRELU_SLOPE))
             if inject is not None:
@@ -156,8 +166,8 @@ class Generator(HiFiGANTrunk):
                 self.exc.append(Conv1d(1, ch, max(2 * stride, 3),
                                        stride=stride))
 
-    def forward(self, x: torch.Tensor,
-                exc: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, exc: Optional[torch.Tensor] = None,
+                g: Optional[torch.Tensor] = None) -> torch.Tensor:
         inject = None
         if exc is not None:
             if self.exc is None:
@@ -169,7 +179,7 @@ class Generator(HiFiGANTrunk):
                 return h + self.exc[i](src.to(h.dtype))
         elif self.exc is not None:
             raise ValueError("an nsf generator needs its excitation")
-        return torch.tanh(self.conv_post(self.trunk(x, inject))
+        return torch.tanh(self.conv_post(self.trunk(x, inject, g))
                           ).transpose(1, 2)
 
 

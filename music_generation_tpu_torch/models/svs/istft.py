@@ -15,7 +15,7 @@ not load into another.
 from __future__ import annotations
 
 import functools
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -125,16 +125,19 @@ class ISTFTGenerator(HiFiGANTrunk):
                  upsample_rates: Sequence[int] = (8, 8),
                  upsample_initial_channel: int = 512,
                  upsample_kernel_sizes: Sequence[int] = (16, 16),
-                 istft_n_fft: int = 16, istft_hop: int = 4):
+                 istft_n_fft: int = 16, istft_hop: int = 4,
+                 gin_channels: int = 0):
         super().__init__(in_channels, resblock, resblock_kernel_sizes,
                          resblock_dilation_sizes, upsample_rates,
-                         upsample_initial_channel, upsample_kernel_sizes)
+                         upsample_initial_channel, upsample_kernel_sizes,
+                         gin_channels)
         self.n_fft, self.hop = istft_n_fft, istft_hop
         self.n_bins = istft_n_fft // 2 + 1
         self.istft_head = Conv1d(self.out_channels, 2 * self.n_bins, 7)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.istft_head(self.trunk(x)).transpose(1, 2)
+    def forward(self, x: torch.Tensor,
+                g: Optional[torch.Tensor] = None) -> torch.Tensor:
+        h = self.istft_head(self.trunk(x, g=g)).transpose(1, 2)
         mag, phase = _mag_phase(h, self.n_bins)
         audio = istft_overlap_add(mag, phase, self.n_fft, self.hop)
         return torch.tanh(audio)[..., None]
@@ -153,10 +156,11 @@ class MBISTFTGenerator(HiFiGANTrunk):
                  upsample_initial_channel: int = 512,
                  upsample_kernel_sizes: Sequence[int] = (8, 8),
                  istft_n_fft: int = 16, istft_hop: int = 4,
-                 subbands: int = 4):
+                 subbands: int = 4, gin_channels: int = 0):
         super().__init__(in_channels, resblock, resblock_kernel_sizes,
                          resblock_dilation_sizes, upsample_rates,
-                         upsample_initial_channel, upsample_kernel_sizes)
+                         upsample_initial_channel, upsample_kernel_sizes,
+                         gin_channels)
         self.n_fft, self.hop = istft_n_fft, istft_hop
         self.n_bins = istft_n_fft // 2 + 1
         self.subbands = subbands
@@ -167,8 +171,9 @@ class MBISTFTGenerator(HiFiGANTrunk):
         self.register_buffer("pqmf", torch.as_tensor(
             pqmf_filters(subbands, synthesis=True)), persistent=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.istft_head(self.trunk(x)).transpose(1, 2)
+    def forward(self, x: torch.Tensor,
+                g: Optional[torch.Tensor] = None) -> torch.Tensor:
+        h = self.istft_head(self.trunk(x, g=g)).transpose(1, 2)
         b, t, _ = h.shape
         mag, phase = _mag_phase(
             h.reshape(b, t, self.subbands, 2 * self.n_bins), self.n_bins)

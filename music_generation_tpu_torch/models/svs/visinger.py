@@ -1,20 +1,21 @@
 """VISinger: VITS-derived singing-voice synthesizer.
 
-Twin of music_generation_tpu/models/svs/visinger.py for the AE variant
-with the HiFi-GAN (optionally with the NSF harmonic source), iSTFT or
-MB-iSTFT decoder. Layout is channels-last [B, T, C] with [B, T, 1] masks,
-as in the JAX package, so the two compare like with like.
+Twin of music_generation_tpu/models/svs/visinger.py, the AE variant
+(SpecDecoder + spec_proj) or, with ``autoencoder=False``, the plain one
+that decodes z itself, with the HiFi-GAN (optionally with the NSF harmonic
+source), iSTFT or MB-iSTFT decoder. Layout is channels-last [B, T, C] with
+[B, T, 1] masks, as in the JAX package, so the two compare like with like.
 
 Ported: SVSConfig, f0_to_coarse, note_hz_frames, TextEncoder, F0Predictor
 (absolute or residual head), MelPredictNetwork, FramePriorNetwork,
 TextPostNet, PosteriorEncoder, SpecDecoder, VISinger.infer / infer_hidden /
 decode_hidden (F0 from the predictor or the score, the NSF source, the
-decoder in bfloat16) and the training forward (VISinger.forward, with
-dataset or MAS durations). Dropout is explicit: every forward takes
-``deterministic`` (default True) and a ``torch.Generator``, as the flax
-modules take ``deterministic`` and a dropout rng; the module's train/eval
-mode plays no part. The non-AE variant comes with a later part of the
-port.
+decoder in bfloat16), the probes infer_fake / copy_synthesis /
+voice_conversion (speaker conditioning g [B, 1, gin_channels]) and the
+training forward (VISinger.forward, with dataset or MAS durations).
+Dropout is explicit: every forward takes ``deterministic`` (default True)
+and a ``torch.Generator``, as the flax modules take ``deterministic`` and a
+dropout rng; the module's train/eval mode plays no part.
 """
 
 from __future__ import annotations
@@ -89,6 +90,13 @@ class SVSConfig:
     upsample_initial_channel: int = 512
     upsample_kernel_sizes: Sequence[int] = (16, 16, 4, 4)
     segment_size: int = 12288         # samples per training slice
+    # speaker conditioning width: > 0 builds the cond convs of the
+    # posterior encoder, the flow and the decoder, which take g
+    # [B, 1, gin_channels] (voice_conversion); 0 builds none
+    gin_channels: int = 0
+    # the AE variant (SpecDecoder + spec_proj before the vocoder); False
+    # is the plain variant, whose vocoder decodes z itself
+    autoencoder: bool = True
     # vocoder decoder family (models/svs/istft.py): "hifigan" (reference
     # parity), "istft" (an iSTFT head replaces the last upsample stages) or
     # "mb_istft" (+ PQMF subbands); istft_upsample_rates * istft_hop
@@ -252,13 +260,14 @@ class PosteriorEncoder(nn.Module):
         h = cfg.hidden_channels
         self.inter = cfg.inter_channels
         self.pre = Conv1d(cfg.spec_channels, h, 1)
-        self.enc = WaveNet(h, 5, 1, 16)
+        self.enc = WaveNet(h, 5, 1, 16, cfg.gin_channels)
         self.proj = Conv1d(h, 2 * cfg.inter_channels, 1)
 
     def forward(self, spec, mask, noise: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                g: Optional[torch.Tensor] = None):
         x = conv_ntc(self.pre, spec) * mask
-        x = self.enc(x, mask)
+        x = self.enc(x, mask, g)
         stats = conv_ntc(self.proj, x) * mask
         m, logs = stats[..., :self.inter], stats[..., self.inter:]
         if noise is None:
@@ -285,10 +294,11 @@ class SpecDecoder(nn.Module):
 
 
 class VISinger(nn.Module):
-    """AE variant with the HiFi-GAN, iSTFT or MB-iSTFT decoder
-    (``cfg.decoder_type``; ``cfg.nsf`` gives the HiFi-GAN decoder the
-    harmonic source). Methods:
+    """The AE or plain variant (``cfg.autoencoder``) with the HiFi-GAN,
+    iSTFT or MB-iSTFT decoder (``cfg.decoder_type``; ``cfg.nsf`` gives the
+    HiFi-GAN decoder the harmonic source). Methods:
       - infer(...): score -> waveform
+      - infer_fake / copy_synthesis / voice_conversion: spectrogram probes
       - forward(...): the training forward (pieces for the GAN/VAE losses)
     """
 
@@ -301,10 +311,12 @@ class VISinger(nn.Module):
         self.text_post_net = TextPostNet(c)
         self.spec_encoder = PosteriorEncoder(c)
         self.spec_flow = ResidualCouplingBlock(
-            c.inter_channels, c.hidden_channels, 5, 1, 4)
+            c.inter_channels, c.hidden_channels, 5, 1, 4,
+            gin_channels=c.gin_channels)
         trunk = (c.inter_channels, c.resblock,
                  tuple(c.resblock_kernel_sizes),
                  tuple(tuple(d) for d in c.resblock_dilation_sizes))
+        gin = {"gin_channels": c.gin_channels}
         if c.decoder_type == "istft":
             up = math.prod(c.istft_upsample_rates) * c.istft_hop
             assert up == c.hop_length, (up, c.hop_length)
@@ -312,7 +324,7 @@ class VISinger(nn.Module):
                 *trunk, tuple(c.istft_upsample_rates),
                 c.upsample_initial_channel,
                 tuple(c.istft_upsample_kernel_sizes), c.istft_n_fft,
-                c.istft_hop)
+                c.istft_hop, **gin)
         elif c.decoder_type == "mb_istft":
             up = (math.prod(c.mb_upsample_rates) * c.istft_hop
                   * c.mb_subbands)
@@ -321,18 +333,19 @@ class VISinger(nn.Module):
                 *trunk, tuple(c.mb_upsample_rates),
                 c.upsample_initial_channel,
                 tuple(c.mb_upsample_kernel_sizes), c.istft_n_fft,
-                c.istft_hop, c.mb_subbands)
+                c.istft_hop, c.mb_subbands, **gin)
         else:
             assert c.decoder_type == "hifigan", c.decoder_type
             self.decoder = Generator(
                 *trunk, tuple(c.upsample_rates), c.upsample_initial_channel,
-                tuple(c.upsample_kernel_sizes), nsf=c.nsf)
+                tuple(c.upsample_kernel_sizes), nsf=c.nsf, **gin)
         if c.nsf:
             assert c.decoder_type == "hifigan", (
                 "NSF excitation is wired for the hifigan decoder only")
         assert c.f0_mode in ("predict", "score"), c.f0_mode
-        self.spec_decoder = SpecDecoder(c)
-        self.spec_proj = Conv1d(c.spec_channels, c.inter_channels, 1)
+        if c.autoencoder:
+            self.spec_decoder = SpecDecoder(c)
+            self.spec_proj = Conv1d(c.spec_channels, c.inter_channels, 1)
 
     def infer(self, phones, x_lengths, note_ids, note_durations, shengdiao,
               max_frames: int, noise_scale: float = 1.0,
@@ -361,8 +374,9 @@ class VISinger(nn.Module):
         """infer() up to (excluding) the vocoder: the decoder input
         [B, max_frames, inter], mel_len [B] and the aux dict: log_f0 (the
         predictor's), log_f0_used (the F0 the decoder's source follows),
-        mel_predict, spec_predict, frames, and with ``cfg.nsf`` exc, the
-        full-length harmonic source [B, max_frames * hop, 1]."""
+        mel_predict, spec_predict (None in the plain variant), frames, and
+        with ``cfg.nsf`` exc, the full-length harmonic source
+        [B, max_frames * hop, 1]."""
         c = self.cfg
         x_mask = feature_mask(x_lengths, phones.shape[1])
         h_text = self.text_encoder(phones, note_ids, note_durations,
@@ -398,8 +412,7 @@ class VISinger(nn.Module):
                                 device=m_p.device, dtype=m_p.dtype)
         z_p = m_p + noise * torch.exp(logs_p) * noise_scale
         z = self.spec_flow(z_p, y_mask, reverse=True)
-        spec_predict = self.spec_decoder(z, y_mask)
-        hidden = conv_ntc(self.spec_proj, spec_predict) * y_mask
+        hidden, spec_predict = self._vocoder_input(z, y_mask)
         lf0_used = (lf0_score if lf0_score is not None
                     else log_f0 * y_mask[..., 0])
         aux.update(log_f0=log_f0, log_f0_used=lf0_used,
@@ -415,18 +428,91 @@ class VISinger(nn.Module):
         return harmonic_excitation(log_f0, self.cfg.hop_length,
                                    self.cfg.sampling_rate)
 
+    def _vocoder_input(self, z, y_mask):
+        """(hidden, spec_predict): the vocoder's input on the trained path,
+        z -> spec decoder -> spec_proj in the AE variant, z itself (and no
+        spec_predict) in the plain one."""
+        if not self.cfg.autoencoder:
+            return z * y_mask, None
+        spec_predict = self.spec_decoder(z, y_mask)
+        return conv_ntc(self.spec_proj, spec_predict) * y_mask, spec_predict
+
     def decode_hidden(self, hidden: torch.Tensor,
-                      exc: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      exc: Optional[torch.Tensor] = None,
+                      g: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Vocoder decoder only (pairs with infer_hidden; ``exc`` is its
-        aux["exc"] under ``cfg.nsf``). With ``cfg.decoder_bf16`` the
-        decoder runs in bfloat16 and its output comes back float32: the
-        hidden state is cast here, and each conv casts its float32
-        effective weight at use (core.layers), so the module and its
-        state_dict stay float32."""
+        aux["exc"] under ``cfg.nsf``, ``g`` [B, 1, gin_channels] the
+        speaker conditioning). With ``cfg.decoder_bf16`` the decoder runs
+        in bfloat16 and its output comes back float32: the hidden state is
+        cast here, and each conv casts its float32 effective weight at use
+        (core.layers), so the module and its state_dict stay float32."""
         kw = {} if exc is None else {"exc": exc}
+        if g is not None:
+            kw["g"] = g
         if self.cfg.decoder_bf16:
             return self.decoder(hidden.to(torch.bfloat16), **kw).float()
         return self.decoder(hidden, **kw)
+
+    def _latent_to_audio(self, z, y_mask, log_f0=None):
+        """(audio, spec_predict) of a posterior z through the trained
+        decode path; ``log_f0`` drives the NSF source."""
+        hidden, spec_predict = self._vocoder_input(z, y_mask)
+        exc = (self.excitation(log_f0) if self.cfg.nsf and log_f0 is not None
+               else None)
+        return self.decode_hidden(hidden, exc), spec_predict
+
+    def infer_fake(self, spec, y_lengths, max_len: Optional[int] = None,
+                   noise: Optional[torch.Tensor] = None,
+                   log_f0: Optional[torch.Tensor] = None,
+                   generator: Optional[torch.Generator] = None):
+        """Copy synthesis as the reference writes it: spectrogram [B, F,
+        spec_channels] -> posterior z -> the vocoder, straight from z in
+        both variants (the reference's decoder(z) bypass of the AE spec
+        decoder). ``max_len`` keeps the first frames (the mask and, under
+        NSF, the source sliced with z); ``log_f0`` [B, F] drives the NSF
+        source; ``noise`` replaces the posterior draw. Returns (audio,
+        y_mask, z)."""
+        y_mask = feature_mask(y_lengths, spec.shape[1])
+        z, _, _, _ = self.spec_encoder(spec, y_mask, noise=noise,
+                                       generator=generator)
+        z = z * y_mask
+        exc = (self.excitation(log_f0) if self.cfg.nsf and log_f0 is not None
+               else None)
+        if max_len is not None:
+            z, y_mask = z[:, :max_len], y_mask[:, :max_len]
+            if exc is not None:
+                exc = exc[:, :max_len * self.cfg.hop_length]
+        return self.decode_hidden(z, exc), y_mask, z
+
+    def copy_synthesis(self, spec, y_lengths,
+                       noise: Optional[torch.Tensor] = None,
+                       log_f0: Optional[torch.Tensor] = None,
+                       generator: Optional[torch.Generator] = None):
+        """Spectrogram -> posterior z -> the trained decode path (the spec
+        decoder in the AE variant) -> waveform: the reconstruction the
+        training objective optimises. Returns (audio, y_mask, z)."""
+        y_mask = feature_mask(y_lengths, spec.shape[1])
+        z, _, _, _ = self.spec_encoder(spec, y_mask, noise=noise,
+                                       generator=generator)
+        audio, _ = self._latent_to_audio(z, y_mask, log_f0=log_f0)
+        return audio, y_mask, z
+
+    def voice_conversion(self, spec, y_lengths,
+                         g_src: Optional[torch.Tensor] = None,
+                         g_tgt: Optional[torch.Tensor] = None,
+                         noise: Optional[torch.Tensor] = None,
+                         generator: Optional[torch.Generator] = None):
+        """Posterior under ``g_src`` -> flow -> inverse flow under ``g_tgt``
+        -> the vocoder under ``g_tgt``, straight from z_hat as the
+        reference does (g: [B, 1, gin_channels] or None). Returns (audio,
+        y_mask, (z, z_p, z_hat))."""
+        y_mask = feature_mask(y_lengths, spec.shape[1])
+        z, _, _, _ = self.spec_encoder(spec, y_mask, noise=noise,
+                                       generator=generator, g=g_src)
+        z_p = self.spec_flow(z, y_mask, g_src)
+        z_hat = self.spec_flow(z_p, y_mask, g_tgt, reverse=True)
+        return (self.decode_hidden(z_hat * y_mask, g=g_tgt), y_mask,
+                (z, z_p, z_hat))
 
     def _posterior(self, spec, y_lengths, noise=None, generator=None):
         """Posterior sample and its flow image: (z, m_q, logs_q, y_mask,
@@ -517,8 +603,11 @@ class VISinger(nn.Module):
         z_hat = self.spec_flow(m_p + noise_rev * torch.exp(logs_p), y_mask,
                                reverse=True)
 
-        spec_predict = self.spec_decoder(z, y_mask)
-        dec_input = conv_ntc(self.spec_proj, spec_predict)
+        if c.autoencoder:
+            spec_predict = self.spec_decoder(z, y_mask)
+            dec_input = conv_ntc(self.spec_proj, spec_predict)
+        else:
+            spec_predict, dec_input = None, z
         z_slice, ids_slice = rand_slice_segments(
             dec_input, y_lengths, c.segment_frames, u=slice_u,
             generator=generator)

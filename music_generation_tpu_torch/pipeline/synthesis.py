@@ -2,8 +2,10 @@
 
 Twin of music_generation_tpu/pipeline/synthesis.py for the served path:
 sentence split, whole-song melody, G2P score alignment, one batched SVS
-call with on-device int16 peak normalisation, 0.2 s leading pad, WAV bytes;
-the halo-chunked vocoder decode and streaming (stream_score, stream_song).
+call with on-device int16 peak normalisation, 0.2 s leading pad, WAV bytes,
+and, for a melody that gives MIDI tracks (TeleMelody), the rendered
+accompaniment mixed under the vocal; the halo-chunked vocoder decode,
+streaming (stream_score, stream_song) and pipe-format score lines.
 Inputs are padded to the same (phone, frame) buckets as the JAX package:
 the vocoder has no mask, so the frame bucket shapes the last samples of
 every sentence and must match for the two packages to agree.
@@ -23,8 +25,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..audio.wav import (SAMPLE_RATE, concat_with_delay, normalize_int16,
-                         write_wav_bytes)
+from ..audio.wav import (SAMPLE_RATE, concat_with_delay, mix,
+                         normalize_int16, write_wav_bytes)
 from ..device import resolve_device
 from ..frontend import ScoreFrontend, load_lexicon, midi_to_note
 from ..models.melody import (MelodyConfig, MelodyGenerator,
@@ -357,6 +359,13 @@ class SVSSynthesizer:
             self.generator.set_state(state)
         return {"flops": counter.get_total_flops()}
 
+    def synthesize_pipe_format(self, line: str) -> np.ndarray:
+        """A pipe-format score line, 'name|lyrics|pitches|durations'
+        (space-separated pitches and seconds), -> its float waveform."""
+        metas = line.split("|")
+        return self.synthesize(metas[1].replace(" ", ""), metas[2].split(" "),
+                               [float(x) for x in metas[3].split(" ")])
+
 
 @dataclass
 class SongResult:
@@ -371,14 +380,22 @@ class SongSynthesizer:
     """Full lyrics -> song (multi-speaker via per-speaker SVS models)."""
 
     def __init__(self, melody, synthesizers: dict[int, SVSSynthesizer],
-                 lyric_replacements: tuple = ()):
+                 lyric_replacements: tuple = (),
+                 mix_accompaniment: bool = False,
+                 accompaniment_gain: float = 0.8):
         # a MelodyGenerator (whole-song generate_song) or any generator
-        # with generate(sentence, index, previous_notes)
+        # with generate(sentence, index, previous_notes); one that also
+        # keeps the MIDI tracks of its last sentence in ``last_tracks``
+        # (TeleMelody) can be mixed under the vocal
         self.melody = melody
         self.synthesizers = synthesizers  # singer_id -> SVSSynthesizer
         # svs_v5's phrase substitutions (LYRIC_REPLACEMENTS when the
         # variant enables them)
         self.lyric_replacements = tuple(lyric_replacements)
+        # pipeline v1 of the reference: accompaniment_gain * the rendered
+        # MIDI + the vocal (pipline_inference.py:221-232)
+        self.mix_accompaniment = mix_accompaniment
+        self.accompaniment_gain = accompaniment_gain
         # melody decode carries previous-sentence state; serialize it so
         # concurrent requests (serve/batching.py) stay race-free while the
         # SVS stage batches across requests
@@ -386,7 +403,10 @@ class SongSynthesizer:
 
     def _scores(self, svs, sentences: list[str]):
         """The melody of every sentence, then its aligned score: (note
-        names per sentence, scores). The melody runs under _melody_lock."""
+        names per sentence, scores, MIDI tracks per sentence: the
+        generator's last_tracks, or None). The melody runs under
+        _melody_lock."""
+        tracks = []
         with self._melody_lock:
             if hasattr(self.melody, "generate_song"):
                 outs = self.melody.generate_song(sentences)
@@ -397,6 +417,7 @@ class SongSynthesizer:
                         sentence, index=k, previous_notes=previous or None)
                     previous = out[1]
                     outs.append(out)
+                    tracks.append(getattr(self.melody, "last_tracks", None))
         all_notes, scores = [], []
         for out_lyric, note_tokens, durations in outs:
             note_names = [midi_to_note(int(m)) if m != "rest" else "rest"
@@ -404,7 +425,7 @@ class SongSynthesizer:
             all_notes.append(note_names)
             scores.append(svs.frontend.align(out_lyric, note_names,
                                              durations))
-        return all_notes, scores
+        return all_notes, scores, tracks
 
     def synthesize_song(self, lyrics: str, singer_id: int = 0,
                         batch_svs: bool = True,
@@ -418,7 +439,7 @@ class SongSynthesizer:
         sentences = split_sentences(lyrics,
                                     replacements=self.lyric_replacements)
         t_start = time.time()
-        all_notes, scores = self._scores(svs, sentences)
+        all_notes, scores, tracks = self._scores(svs, sentences)
         melody_s = time.time() - t_start
 
         t0 = time.time()
@@ -428,12 +449,16 @@ class SongSynthesizer:
             wavs = [normalize_int16(svs.synthesize_score(s)) for s in scores]
         svs_s = time.time() - t0
         song = concat_with_delay(wavs, delay_seconds=0.2)
+        timings = {"melody_s": melody_s, "svs_s": svs_s}
+        if self.mix_accompaniment and any(tracks):
+            t0 = time.time()
+            song = self._mix_accompaniment(song, wavs, tracks)
+            timings["accompaniment_s"] = time.time() - t0
         return SongResult(
             wav_bytes=write_wav_bytes(song),
             lyrics_sentences=sentences,
             notes=all_notes,
-            timings={"total_s": time.time() - t_start,
-                     "melody_s": melody_s, "svs_s": svs_s},
+            timings={"total_s": time.time() - t_start, **timings},
             sentence_samples=[len(w) for w in wavs],
         )
 
@@ -448,10 +473,36 @@ class SongSynthesizer:
         svs = self.synthesizers.get(singer_id, self.synthesizers[0])
         sentences = split_sentences(lyrics,
                                     replacements=self.lyric_replacements)
-        _, scores = self._scores(svs, sentences)
+        _, scores, _ = self._scores(svs, sentences)
         yield np.zeros(int(0.2 * sample_rate), np.int16)
         for score in scores:
             yield from svs.stream_score(score)
+
+    def _mix_accompaniment(self, song: np.ndarray, wavs: list,
+                           sentence_tracks: list,
+                           sample_rate: int = SAMPLE_RATE) -> np.ndarray:
+        """Each sentence's MIDI tracks rendered at that sentence's offset in
+        the song (after the 0.2 s lead-in), on the vocal's clock
+        (sec_per_tick 0.001: the melody's durations are ticks / 1000 s),
+        scaled to a 32767 peak, then mix(accompaniment, song,
+        accompaniment_gain) on the host."""
+        from ..audio.render import render_tracks
+        total = len(song) / sample_rate
+        accomp = np.zeros(len(song), np.float32)
+        offset = 0.2  # concat_with_delay's lead-in
+        for wav, tracks in zip(wavs, sentence_tracks):
+            if tracks:
+                r = render_tracks(tracks, total_seconds=total - offset,
+                                  sample_rate=sample_rate, gain=1.0,
+                                  sec_per_tick=0.001)
+                i0 = int(offset * sample_rate)
+                n = min(len(r), len(song) - i0)
+                accomp[i0: i0 + n] += r[:n]
+            offset += len(np.asarray(wav).ravel()) / sample_rate
+        peak = np.abs(accomp).max()
+        if peak > 0:
+            accomp = accomp / peak * 32767.0
+        return mix(accomp, song, self.accompaniment_gain)
 
 
 def tiny_configs(src_vocab: int) -> tuple[MelodyConfig, SVSConfig]:

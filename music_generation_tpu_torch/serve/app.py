@@ -20,18 +20,22 @@ wire contract as the reference controllers:
   GET /healthz -> {ok: true[, batching: {...}][, fused: true]}
 
 Run: python -m music_generation_tpu_torch.serve.app --port 5005
-     [--variant svs_v6_multispeaker|svs_v5|svs_v5_multispeaker|melody_v2]
+     [--variant svs_v6_multispeaker|svs_v5|svs_v5_multispeaker|melody_v2|
+                v1_model]
      [--decoder hifigan|istft|mb_istft] [--nsf] [--f0 predict|score]
      [--f0-residual] [--decoder-bf16] [--checkpoint-dir DIR]
      [--lyric-model t5|gpt2] [--fused] [--warmup]
      [--cert-file PEM [--key-file PEM]] [--tiny] [--device cpu]
 --checkpoint-dir (or the config's checkpoint_dir) loads a pipeline
 directory (compat.checkpoints) before serving; a certificate (--cert-file
-or the config's cert_file_path) serves HTTPS. --fused serves a lone
+or the config's cert_file_path) serves HTTPS; a directory of plain
+(non-AE) VISinger files serves that variant. --fused serves a lone
 request through pipeline/fused.py and concurrent ones through the staged
-path and its batcher; --warmup answers one song before serving. --variant
-v1 and v1_model, and MUSIC_BACKEND=new, exit at startup: the shell
-backend and the TeleMelody melody are not ported yet.
+path and its batcher (a melody with no whole-song form, melody_v2's or
+v1_model's TeleMelody, always takes the staged path); --warmup answers one
+song before serving. v1_model mixes the rendered MIDI accompaniment under
+the vocal. --variant v1 and MUSIC_BACKEND=new exit at startup: the shell
+backend is not ported yet.
 """
 
 from __future__ import annotations
@@ -412,8 +416,8 @@ def configure(argv=None):
                         help="random tiny models (smoke testing)")
     parser.add_argument("--variant", default="svs_v6_multispeaker",
                         choices=sorted(VARIANTS),
-                        help="reference server variant preset (v1 and "
-                             "v1_model are not ported yet and exit)")
+                        help="reference server variant preset (v1, the "
+                             "shell backend, is not ported yet and exits)")
     parser.add_argument("--lyric-model", default="t5", choices=["t5", "gpt2"],
                         help="lyric LM for keyword requests")
     parser.add_argument("--decoder", default="hifigan",
@@ -454,8 +458,8 @@ def configure(argv=None):
                              "fused path (pipeline/fused.py: one "
                              "device-to-host copy per request); concurrent "
                              "requests take the staged path and its batcher. "
-                             "Ignored, with a warning, by melody_v2, whose "
-                             "melody has no whole-song form")
+                             "Ignored, with a warning, by melody_v2 and "
+                             "v1_model, whose melody has no whole-song form")
     parser.add_argument("--warmup", action="store_true",
                         help="answer one song (and, with --fused, the "
                              "staged path too) before serving, so that the "

@@ -9,15 +9,15 @@ preset reproduces one:
   svs_v5        T5 lyrics + transformer melody w/ SDP durations
   svs_v5_ms     v5 + 3 speakers
   svs_v6_ms     T5 lyrics + transformer melody w/ MSE durations + 3 speakers
-The port serves melody_v2, svs_v5, svs_v5_multispeaker and
-svs_v6_multispeaker; the shell backend and TeleMelody are not ported yet
-(ROADMAP.md, Queue 1 items 8 and 9) and raise NotImplementedError.
+The port serves every preset but v1: the shell backend is not ported yet
+(ROADMAP.md, Queue 1 item 9) and raises NotImplementedError.
 """
 
 from __future__ import annotations
 
 import base64
 import os
+import re
 from dataclasses import dataclass
 from typing import Optional
 
@@ -59,11 +59,6 @@ def check_ported(spec: VariantSpec) -> None:
             f"variant {spec.name}: the shell backend (ollama/DiffRhythm "
             f"pipeline, serve/modes.py) is not ported yet "
             f"(ROADMAP.md Queue 1 item 9)")
-    if spec.melody == "telemelody" or spec.accompaniment:
-        raise NotImplementedError(
-            f"variant {spec.name}: the TeleMelody melody and its rendered "
-            f"accompaniment (audio/render.py, audio/midi.py, beam.py "
-            f"sample_decode) are not ported yet (ROADMAP.md Queue 1 item 8)")
 
 
 def canned_response(keyword: str, canned_dir: Optional[str]):
@@ -104,18 +99,25 @@ def build_melody_generator(spec: VariantSpec, tiny: bool = False,
                else Seq2SeqConfig())
         return _Seq2SeqAdapter(Seq2SeqMelodyGenerator(
             *default_langs(), cfg=cfg, seed=seed, device=device))
+    if spec.melody == "telemelody":
+        from ..models.melody import MelodyConfig, TeleMelodyGenerator
+        cfg = (MelodyConfig(n_layers=1, d_model=32, d_ff=64, n_heads=2)
+               if tiny else MelodyConfig())
+        return _TeleMelodyAdapter(TeleMelodyGenerator(cfg=cfg, seed=seed,
+                                                      device=device))
     raise ValueError(spec.melody)
 
 
 def variant_song_synthesizer(spec: VariantSpec, synthesizers: dict,
                              tiny: bool = False, seed: int = 0, device=None):
     """The song pipeline a variant serves: its melody generator (from
-    ``seed``) and lyric substitutions around already built per-speaker
-    SVS synthesizers."""
+    ``seed``), lyric substitutions and accompaniment around already built
+    per-speaker SVS synthesizers."""
     from ..pipeline.synthesis import LYRIC_REPLACEMENTS, SongSynthesizer
     return SongSynthesizer(
         build_melody_generator(spec, tiny, seed, device), synthesizers,
-        lyric_replacements=LYRIC_REPLACEMENTS if spec.censor_lyrics else ())
+        lyric_replacements=LYRIC_REPLACEMENTS if spec.censor_lyrics else (),
+        mix_accompaniment=spec.accompaniment)
 
 
 class _Seq2SeqAdapter:
@@ -131,3 +133,24 @@ class _Seq2SeqAdapter:
         tokens = [str(note_to_midi(n)) if n != "rest" else "rest"
                   for n in note_names]
         return lyrics_out, tokens, [float(d) for d in durations]
+
+
+class _TeleMelodyAdapter:
+    """Adapts TeleMelodyGenerator.get_melody to the pipeline's
+    .generate(sentence, index, previous_notes) surface, keeping the
+    sentence's MIDI tracks (melody + block-chord piano) in
+    ``last_tracks`` for the accompaniment."""
+
+    def __init__(self, gen):
+        self.gen = gen
+        self.last_tracks = None
+
+    def generate(self, lyric, index=0, previous_notes=None):
+        from ..frontend import note_to_midi
+        result, durations, pitches = self.gen.get_melody(lyric)
+        self.last_tracks = result.tracks
+        tokens = [str(note_to_midi(p)) for p in pitches]
+        # punctuation became [sep] (no note): drop it from the sung text so
+        # that syllables and notes stay one to one for the score aligner
+        clean = re.sub(r"[,.!，。！？?；;、]", "", lyric)
+        return clean + "AP", tokens + ["rest"], durations + [0.6]

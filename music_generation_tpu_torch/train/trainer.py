@@ -265,10 +265,11 @@ def generator_loss(disc, out: dict, batch: dict, svs_cfg: SVSConfig,
         m["loss_stft"] = losses.multires_stft_loss(
             audio[..., 0], y_real[..., 0]) * tc.c_stft
         total = total + m["loss_stft"]
-    c_spec = tc.c_spec if tc.c_spec is not None else tc.c_mel
-    m["loss_spec"] = losses.l1_masked(out["spec_predict"], batch["spec"],
-                                      out["y_mask"]) * c_spec
-    total = total + m["loss_spec"]
+    if svs_cfg.autoencoder:  # the plain VISinger predicts no spectrogram
+        c_spec = tc.c_spec if tc.c_spec is not None else tc.c_mel
+        m["loss_spec"] = losses.l1_masked(out["spec_predict"], batch["spec"],
+                                          out["y_mask"]) * c_spec
+        total = total + m["loss_spec"]
     m["loss_gen"] = total
     metrics = {k: v.detach() for k, v in m.items()}
     # tanh-saturation telemetry (see the JAX package's gen_loss_fn)

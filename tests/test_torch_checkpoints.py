@@ -410,7 +410,7 @@ def test_reference_import_matches_jax():
         got = visinger_state_dict_from_torch(blob, cfg)
         assert got.keys() == want.keys()
         assert all(torch.equal(got[k], want[k]) for k in want)
-    with pytest.raises(NotImplementedError, match="non-AE"):
+    with pytest.raises(ValueError, match="non-AE"):
         visinger_state_dict_from_torch(
             {k: v for k, v in sd.items()
              if not k.startswith("spec_decoder.")}, cfg)

@@ -32,6 +32,7 @@ import base64
 import dataclasses
 import io
 import json
+import shutil
 import threading
 import urllib.request
 
@@ -631,4 +632,5 @@ def test_train_export_serve_nsf_residual(tmp_path, monkeypatch):
                     if state[k].shape == v.shape]
         assert "text_encoder.emb_phoneme.weight" in restored
         assert all(torch.equal(state[k], gen[k]) for k in restored)
+    shutil.rmtree(ck)  # the step file with the discriminator's, 0.5 GB
 

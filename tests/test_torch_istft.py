@@ -13,6 +13,7 @@ relative L2 per tensor.
 
 import io
 import json
+import os
 
 import jax
 import jax.numpy as jnp
@@ -232,6 +233,7 @@ def test_train_cli_trains_decoder(decoder, tmp_path):
     with open(tmp_path / "logs" / "train_metrics.jsonl") as fh:
         rows = [json.loads(line) for line in fh]
     assert len(rows) == 2 and all(np.isfinite(r["loss_gen"]) for r in rows)
+    os.remove(tmp_path / "step_2.pt")  # 0.5 GB with the discriminator's
 
 
 @pytest.mark.parametrize("decoder", sorted(DECODERS))

@@ -8,8 +8,8 @@ only); the port takes the same noise as an argument. Tolerances: 1e-5
 (float32 sums in another order); the spline's log-determinant within
 1e-5 + twice JAX's own float32 error of the float64 value; the port's
 spline inverse of its forward within 1e-4; formatted durations, sentence
-splits and the variant table identical. Also the port's HTTP service under tiny svs_v5_multispeaker
-and melody_v2, and the variants it refuses.
+splits and the variant table identical. Also the port's HTTP service under tiny svs_v5_multispeaker,
+melody_v2 and v1_model, and the variant it refuses.
 """
 
 import base64
@@ -315,8 +315,7 @@ def test_variant_table_and_canned_response(tmp_path):
         == "宁静的夏天"
 
 
-@pytest.mark.parametrize("variant,missing", [("v1", "shell backend"),
-                                             ("v1_model", "TeleMelody")])
+@pytest.mark.parametrize("variant,missing", [("v1", "shell backend")])
 def test_unported_variants_exit_at_startup(variant, missing, capsys):
     with pytest.raises(SystemExit) as e:
         t_app.main(["--variant", variant, "--tiny", "--device", "cpu"])
@@ -343,7 +342,8 @@ def _post(port, payload):
         return json.loads(resp.read())
 
 
-@pytest.mark.parametrize("variant", ["svs_v5_multispeaker", "melody_v2"])
+@pytest.mark.parametrize("variant", ["svs_v5_multispeaker", "melody_v2",
+                                     "v1_model"])
 def test_variant_served(variant, tmp_path, monkeypatch):
     """serve.app's main() itself with --tiny --device cpu --variant, its
     server bound to a free local port: a text request answers 200 with a
@@ -388,8 +388,11 @@ def test_variant_served(variant, tmp_path, monkeypatch):
     assert sorted(songs.synthesizers) == [0, 1, 2]
     assert songs.lyric_replacements == (t_syn.LYRIC_REPLACEMENTS
                                         if spec.censor_lyrics else ())
+    assert songs.mix_accompaniment == spec.accompaniment
     if spec.melody == "sdp":
         assert songs.melody.duration_variant == "sdp"
+    elif spec.melody == "telemelody":
+        assert isinstance(songs.melody, t_var._TeleMelodyAdapter)
     else:
         assert isinstance(songs.melody, t_var._Seq2SeqAdapter)
     if spec.canned_dir:

@@ -18,6 +18,7 @@ relative L2 per parameter tensor, the optimizer within 1e-6.
 import contextlib
 import json
 import os
+import shutil
 from unittest import mock
 
 import jax
@@ -453,6 +454,7 @@ def test_cli_trains_with_mas_on_cpu_and_resumes(tmp_path):
     assert [r["step"] for r in rows] == [0, 1, 2]
     assert all(np.isfinite(r["loss_gen"]) and r["loss_disc"] > 0
                for r in rows)
+    shutil.rmtree(ck)  # two step files of the full discriminator, 1.1 GB
 
 
 @pytest.mark.parametrize("flag", [

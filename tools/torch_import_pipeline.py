@@ -18,15 +18,21 @@ Both write svs_<id>.pt (and, from a JAX directory of the transformer melody
 family, melody_notes.pt and melody_duration.pt) under --out. --tiny,
 --decoder, --nsf, --f0-residual and --variant select the configuration the
 server will build (serve.app's flags of the same names); a tree of another
-configuration is refused. The reference's .pth has no NSF excitation
-convs, so --pth with --nsf is refused. The JAX package does not save the
-seq2seq melody (melody_v2), so neither does this tool.
+configuration is refused. --no-autoencoder converts the plain (non-AE)
+VISinger: the reference's models.py file, or a JAX tree of
+SVSConfig(autoencoder=False); the server builds that variant from the
+files it loads (compat.checkpoints.load_pipeline). The reference's .pth
+has no NSF excitation convs, so --pth with --nsf is refused. The JAX
+package does not save the seq2seq melody (melody_v2), so neither does
+this tool.
 
 Usage:
   python tools/torch_import_pipeline.py --jax-dir jax_pipeline --out served \
       [--variant svs_v6_multispeaker] [--decoder hifigan] [--nsf] \
       [--f0-residual] [--tiny]
   python tools/torch_import_pipeline.py --pth G_AE.pth [--pth G_AE_F09.pth] \
+      --out served [--tiny]
+  python tools/torch_import_pipeline.py --pth G.pth --no-autoencoder \
       --out served [--tiny]
 """
 
@@ -42,14 +48,15 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 
 def svs_config(tiny: bool, decoder: str, nsf: bool = False,
-               f0_residual: bool = False):
+               f0_residual: bool = False, autoencoder: bool = True):
     """The SVSConfig serve.app builds for --tiny, --decoder, --nsf and
-    --f0-residual."""
+    --f0-residual (with ``autoencoder`` False: the plain variant)."""
     from music_generation_tpu_torch.models.svs import SVSConfig
     from music_generation_tpu_torch.pipeline.synthesis import tiny_configs
     return dataclasses.replace(tiny_configs(0)[1] if tiny else SVSConfig(),
                                decoder_type=decoder, nsf=nsf,
-                               f0_residual=f0_residual)
+                               f0_residual=f0_residual,
+                               autoencoder=autoencoder)
 
 
 def _restore_orbax(path: str) -> dict:
@@ -69,7 +76,8 @@ def _save(state_dict: dict, path: str) -> None:
 
 def import_jax_dir(jax_dir: str, out: str, variant: str = "svs_v6_multispeaker",
                    decoder: str = "hifigan", tiny: bool = False,
-                   nsf: bool = False, f0_residual: bool = False) -> list:
+                   nsf: bool = False, f0_residual: bool = False,
+                   autoencoder: bool = True) -> list:
     """Convert a JAX pipeline directory; returns the files written."""
     from music_generation_tpu_torch.compat.from_jax import (
         melody_rename, sdp_state_dict_from_flax, state_dict_from_flax,
@@ -78,7 +86,7 @@ def import_jax_dir(jax_dir: str, out: str, variant: str = "svs_v6_multispeaker",
         build_melody_generator)
     from music_generation_tpu_torch.serve.variants import VARIANTS
 
-    cfg = svs_config(tiny, decoder, nsf, f0_residual)
+    cfg = svs_config(tiny, decoder, nsf, f0_residual, autoencoder)
     written = []
     for name in sorted(os.listdir(jax_dir)):
         if re.fullmatch(r"svs_\d+", name):
@@ -112,14 +120,16 @@ def import_jax_dir(jax_dir: str, out: str, variant: str = "svs_v6_multispeaker",
 
 
 def import_pth(files: list, out: str, tiny: bool = False,
-               nsf: bool = False, f0_residual: bool = False) -> list:
+               nsf: bool = False, f0_residual: bool = False,
+               autoencoder: bool = True) -> list:
     """Convert reference .pth files to svs_0.pt, svs_1.pt, ... in order;
-    returns the files written (an ``nsf`` config is refused)."""
+    returns the files written (an ``nsf`` config is refused, and a file of
+    the other AE variant than ``autoencoder``)."""
     import torch
 
     from music_generation_tpu_torch.compat import (
         visinger_state_dict_from_torch)
-    cfg = svs_config(tiny, "hifigan", nsf, f0_residual)
+    cfg = svs_config(tiny, "hifigan", nsf, f0_residual, autoencoder)
     written = []
     for i, path in enumerate(files):
         blob = torch.load(path, map_location="cpu", weights_only=True)
@@ -147,6 +157,9 @@ def main(argv=None):
     p.add_argument("--f0-residual", action="store_true",
                    help="the SVS trees were trained with train "
                         "--f0-residual")
+    p.add_argument("--no-autoencoder", action="store_true",
+                   help="the plain (non-AE) VISinger: the reference's "
+                        "models.py file, without spec_decoder")
     p.add_argument("--tiny", action="store_true")
     args = p.parse_args(argv)
     if args.pth and args.decoder != "hifigan":
@@ -157,10 +170,10 @@ def main(argv=None):
         if args.jax_dir:
             import_jax_dir(args.jax_dir, args.out, args.variant,
                            args.decoder, args.tiny, args.nsf,
-                           args.f0_residual)
+                           args.f0_residual, not args.no_autoencoder)
         else:
             import_pth(args.pth, args.out, args.tiny, args.nsf,
-                       args.f0_residual)
+                       args.f0_residual, not args.no_autoencoder)
     except (ValueError, NotImplementedError) as e:
         p.error(str(e)[:500])
 
