@@ -115,13 +115,37 @@ Phases, each fatal on failure (no exception is caught):
               --no-autoencoder into --checkpoint-dir, every served tensor
               equal to the file's, one request served; one plain full-width
               training step with --durations mas (MAS twice, no loss_spec)
+ 14. corpus and v1  the port's native host library built with g++ into
+              build/music_generation_tpu_torch/ (native_available, build
+              seconds, with or without OpenMP); two toy corpora written and
+              preprocessed (YIN through the native code, asserted) and
+              packed: 32 utterances of 6 syllables (train.toydata's
+              defaults) and 8 of 24 syllables, longer than the 480-frame
+              batch; the first PackedDataset batch equal to the NpyDataset
+              batch of seed 0, each reader's batch time; the trainer CLI
+              (train.__main__.main) at full width, B=8, --durations mas
+              --log-images: --packed for 4 steps and --data-dir for 1
+              (losses finite and equal on the first step, MAS twice per
+              step and the plain version never, steps_per_epoch 32 // 8,
+              the JSONL and images written; ms per step, peak memory);
+              the kernel against the plain version on a corpus step's
+              ragged neg_cent and on a long-corpus batch; then serve.app's
+              construction with --variant v1 (the full-width T5 as the
+              shell's lyric_fn, MelodyConfig() and three SVSConfig()
+              singers behind the fallback; no ollama on PATH) and with
+              MUSIC_BACKEND=new and a stub $DIFFRHYTHM_REPO: over HTTP a
+              keyword request and a raw_lyrics request through the shell,
+              a request whose shell run raises answered by the model path
+              (cold and warm, the warm one profiled), and the stub
+              DiffRhythm's WAV returned
 Launch counts are zeroed just before each main path and read just after
 it: phases 3-4 (the served slices), phase 5 (the variants, which align
 nothing: no MAS launch, kernel or plain), phase 8 (training), each
 decoder's training steps in phase 10, phase 11's training steps and its
-served configurations, phase 12 (which aligns nothing), and phase 13's
-served paths (none) and its training step. The kernels line reports the
-launches of phases 8, 11 and 13's training. The lyric LMs and TeleMelody
+served configurations, phase 12 (which aligns nothing), phase 13's
+served paths (none) and its training step, and phase 14's two corpus
+training runs and its served v1 paths (none). The kernels line reports
+the launches of phases 8, 11, 13 and 14's training. The lyric LMs and TeleMelody
 launch no hand-written kernel. All phases run in full float32 (TF32 is off for
 matmuls and cuDNN convolutions), except phase 11's --decoder-bf16
 decoders, which run in bfloat16. The last stdout line is the result JSON;
@@ -2650,6 +2674,458 @@ def phase_v1_model(device) -> dict:
     return rows
 
 
+TOY_UTTS, TOY_SYLLABLES = 32, 6   # train.toydata's CLI defaults
+LONG_UTTS, LONG_SYLLABLES = 8, 24  # 6-12 s each: past the 480-frame batch
+CORPUS_STEPS = 4                  # --packed steps; then 1 with --data-dir
+SHELL_TEXT = "你好世界，隐形的翅膀带我飞过绝望"
+SHELL_RAW = "小小的天有大大的梦想\n重重的壳裹着轻轻的仰望"
+DIFFRHYTHM_STUB = """import argparse, os, wave
+import numpy as np
+p = argparse.ArgumentParser()
+for a in ("--lrc-path", "--ref-prompt", "--audio-length", "--repo-id",
+          "--output-dir", "--batch-infer-num"):
+    p.add_argument(a)
+p.add_argument("--chunked", action="store_true")
+a = p.parse_args()
+n = 44100 * int(a.audio_length)
+tone = (8000 * np.sin(2 * np.pi * 440 * np.arange(n) / 44100)).astype("<i2")
+with wave.open(os.path.join(a.output_dir, "song_0.wav"), "wb") as w:
+    w.setnchannels(1); w.setsampwidth(2); w.setframerate(44100)
+    w.writeframes(tone.tobytes())
+"""
+
+
+@contextlib.contextmanager
+def trainer_probe():
+    """Watch the trainer CLI from inside: the states and TrainConfig it
+    builds (create_states), each step's wall between two
+    torch.cuda.synchronize() (make_train_step's step) and the first MAS
+    input of the run (mas_neg_cent). Yields the dict they land in."""
+    import torch
+    from music_generation_tpu_torch.ops import monotonic_align
+    from music_generation_tpu_torch.train import trainer
+    probe = {"step_ms": []}
+    create, make = trainer.create_states, trainer.make_train_step
+    neg_cent_fn = monotonic_align.mas_neg_cent
+
+    def create_states(svs_cfg, tcfg, device=None):
+        probe["svs_cfg"], probe["tcfg"] = svs_cfg, tcfg
+        probe["states"] = create(svs_cfg, tcfg, device)
+        return probe["states"]
+
+    def make_train_step(svs_cfg, tcfg):
+        step = make(svs_cfg, tcfg)
+
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(*args, **kwargs)
+            torch.cuda.synchronize()
+            probe["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return timed
+
+    def capture(*args, **kwargs):
+        out = neg_cent_fn(*args, **kwargs)
+        probe.setdefault("neg_cent", tuple(x.clone() for x in out))
+        return out
+
+    trainer.create_states, trainer.make_train_step = create_states, \
+        make_train_step
+    monotonic_align.mas_neg_cent = capture
+    try:
+        yield probe
+    finally:
+        trainer.create_states, trainer.make_train_step = create, make
+        monotonic_align.mas_neg_cent = neg_cent_fn
+
+
+def kernel_equals_plain(neg_cent, mask, what: str) -> list:
+    """The MAS kernel against the plain version on one input, bit for bit
+    (comparison launches, read after a phase's counts). Returns the
+    input's shape."""
+    import torch
+    from music_generation_tpu_torch.ops import maximum_path, maximum_path_torch
+    got = maximum_path(neg_cent, mask)
+    want = maximum_path_torch(neg_cent, mask)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"maximum_path kernel disagrees with the plain "
+                             f"version on {what}")
+    return list(neg_cent.shape)
+
+
+def corpus_train_run(device, flag: str, source: str, steps: int,
+                     ckpt_dir: Path) -> tuple[dict, dict]:
+    """The port's trainer CLI (train.__main__.main) on the card at full
+    width with --durations mas --log-images on a corpus: losses finite,
+    the MAS kernel twice per step and the plain version never, the JSONL
+    and the images written; ms per step, peak memory. Returns (row,
+    trainer_probe's dict)."""
+    import torch
+    from music_generation_tpu_torch.ops import maximum_path
+    from music_generation_tpu_torch.train.__main__ import main as train_main
+    maximum_path.kernel_launches = 0
+    maximum_path.plain_calls = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    with trainer_probe() as probe:
+        train_main(["--device", str(device), "--durations", "mas",
+                    "--log-images", "--steps", str(steps), "--batch-size",
+                    str(TRAIN_BATCH), "--log-every", "2", "--ckpt-dir",
+                    str(ckpt_dir), flag, source])
+    wall = time.time() - t0
+    launches, plain = maximum_path.kernel_launches, maximum_path.plain_calls
+    if launches != 2 * steps or plain:
+        raise AssertionError(f"{flag}: {steps} steps launched the MAS "
+                             f"kernel {launches} times (plain {plain}); want "
+                             f"{2 * steps} and 0")
+    with open(ckpt_dir / "logs" / "train_metrics.jsonl") as fh:
+        rows = [json.loads(line) for line in fh]
+    if [r["step"] for r in rows] != list(range(0, steps, 2)) or not all(
+            np.isfinite(v) for r in rows for v in r.values()):
+        raise AssertionError(f"{flag}: metrics rows {rows}")
+    # one PNG (or .npy without matplotlib) per image and logged step
+    images = sorted(os.listdir(ckpt_dir / "logs" / "images"))
+    want = sorted(f"img_{k}_{r['step']}" for r in rows
+                  for k in ("alignment", "mel_predict", "spec_predict",
+                            "spec_target"))
+    if sorted(os.path.splitext(f)[0] for f in images) != want or not all(
+            f.endswith((".png", ".npy")) for f in images):
+        raise AssertionError(f"{flag}: images {images}")
+    if not (ckpt_dir / f"step_{steps}.pt").exists():
+        raise AssertionError(f"{flag}: no step_{steps}.pt")
+    return {"flag": flag, "steps": steps, "wall_s": wall,
+            "steps_per_epoch": probe["tcfg"].steps_per_epoch,
+            "step_ms": probe["step_ms"],
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "mas_launches": launches, "images": images,
+            "losses_first": {k: v for k, v in rows[0].items()
+                             if k.startswith("loss")}}, probe
+
+
+def phase_corpus(device) -> dict:
+    """Phase 14a: the native host library, two toy corpora preprocessed
+    (YIN through the native code) and packed, the first batch of each
+    reader, then full-width corpus training through the trainer CLI."""
+    import shutil
+
+    import torch
+    from music_generation_tpu_torch.models.svs import SVSConfig
+    from music_generation_tpu_torch.ops import build, mas_neg_cent
+    from music_generation_tpu_torch.runtime import native_loader
+    from music_generation_tpu_torch.train import to_device, tool_shapes
+    from music_generation_tpu_torch.train.dataset import (NpyDataset,
+                                                          PackedDataset,
+                                                          pack_dataset)
+    from music_generation_tpu_torch.train.toydata import make_toy_dataset
+    start = time.time()
+    rows = {}
+    t0 = time.time()
+    if not native_loader.native_available():
+        raise AssertionError(f"native library did not build: "
+                             f"{native_loader.build_error}")
+    lib = native_loader.library
+    if lib.parent != build.BUILD_DIR or not lib.exists():
+        raise AssertionError(f"native library at {lib}")
+    rows["native"] = {"build_s": native_loader.build_seconds,
+                      "load_s": time.time() - t0, "library": lib.name,
+                      "openmp": native_loader.openmp,
+                      "omp_failure": native_loader.build_error}
+    root = SCRATCH / "corpus"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        yin0 = native_loader.native_calls["yin_f0"]
+        corpora = {}
+        for tag, n, syl, seed in (("toy", TOY_UTTS, TOY_SYLLABLES, SEED),
+                                  ("long", LONG_UTTS, LONG_SYLLABLES,
+                                   SEED + 1)):
+            t0 = time.time()
+            npy = make_toy_dataset(str(root / tag), n_utts=n, syllables=syl,
+                                   seed=seed)
+            prep_s = time.time() - t0
+            t0 = time.time()
+            prefix = str(root / f"{tag}_packed")
+            if pack_dataset(npy, prefix) != n:
+                raise AssertionError(f"{tag}: packed count")
+            wav_s = sum(np.load(os.path.join(npy, f)).size
+                        for f in os.listdir(npy) if f.endswith("-wav.npy")
+                        ) / 22050
+            corpora[tag] = {
+                "npy": npy, "packed": prefix, "utterances": n,
+                "syllables": syl, "audio_s": wav_s, "preprocess_s": prep_s,
+                "pack_s": time.time() - t0,
+                "npy_bytes": sum(os.path.getsize(os.path.join(npy, f))
+                                 for f in os.listdir(npy)),
+                "packed_bytes": os.path.getsize(prefix + ".data")
+                + os.path.getsize(prefix + ".idx")}
+        yin_calls = native_loader.native_calls["yin_f0"] - yin0
+        if yin_calls != TOY_UTTS + LONG_UTTS:
+            raise AssertionError(f"YIN took the native code {yin_calls} "
+                                 f"times for {TOY_UTTS + LONG_UTTS} "
+                                 f"utterances")
+        rows["corpora"] = {k: {kk: vv for kk, vv in v.items()
+                               if kk not in ("npy", "packed")}
+                           for k, v in corpora.items()}
+
+        cfg = SVSConfig()
+        phones, frames = tool_shapes(False)
+        toy, long_ = corpora["toy"], corpora["long"]
+        npy_ds = NpyDataset(toy["npy"], cfg, t_phones=phones,
+                            t_frames=frames, seed=0)
+        packed_ds = PackedDataset(toy["packed"], cfg, t_phones=phones,
+                                  t_frames=frames, seed=0)
+        if not packed_ds._ds.native:
+            raise AssertionError("PackedDataset took the Python reader")
+        gather0 = native_loader.native_calls["read_batch"]
+        first, first_packed = (npy_ds.batch(TRAIN_BATCH),
+                               packed_ds.batch(TRAIN_BATCH))
+        if native_loader.native_calls["read_batch"] != gather0 + 1:
+            raise AssertionError("the packed batch took no native gather")
+        if first.keys() != first_packed.keys() or not all(
+                np.array_equal(first[k], first_packed[k]) for k in first):
+            raise AssertionError("the first PackedDataset batch differs "
+                                 "from the NpyDataset batch of seed 0")
+        rows["first_batch"] = {"x_lengths": first["x_lengths"].tolist(),
+                               "y_lengths": first["y_lengths"].tolist()}
+        rows["batch_ms"] = {
+            name: host_ms(lambda: ds.batch(TRAIN_BATCH), reps=5)
+            for name, ds in (("npy", npy_ds), ("packed", packed_ds))}
+        packed_ds.close()
+
+        runs = {}
+        runs["packed"], probe = corpus_train_run(
+            device, "--packed", toy["packed"], CORPUS_STEPS,
+            root / "ck_packed")
+        shutil.rmtree(root / "ck_packed")  # a 1.2 GB step file
+        neg_cent, mask = probe["neg_cent"]
+        del probe
+        torch.cuda.empty_cache()
+        runs["npy"], probe = corpus_train_run(
+            device, "--data-dir", toy["npy"], 1, root / "ck_npy")
+        shutil.rmtree(root / "ck_npy")
+        for run in runs.values():
+            if run["steps_per_epoch"] != TOY_UTTS // TRAIN_BATCH:
+                raise AssertionError(f"steps_per_epoch "
+                                     f"{run['steps_per_epoch']}")
+        if runs["npy"]["losses_first"] != runs["packed"]["losses_first"]:
+            raise AssertionError("the two readers' first steps differ: "
+                                 f"{runs['npy']['losses_first']} "
+                                 f"{runs['packed']['losses_first']}")
+        rows["train"] = runs
+        rows["mas_launches"] = sum(r["mas_launches"] for r in runs.values())
+        rows["kernel_vs_plain"] = {"corpus_step": kernel_equals_plain(
+            neg_cent, mask, "a corpus step's neg_cent")}
+        rows["corpus_step_lengths"] = {
+            "frames": mask[:, :, 0].sum(1).int().tolist(),
+            "phones": mask[:, 0, :].sum(1).int().tolist()}
+        # a batch of the long corpus (every utterance past 480 frames, cut)
+        # through the trained generator's MAS inputs
+        long_ds = PackedDataset(long_["packed"], cfg, t_phones=phones,
+                                t_frames=frames, seed=SEED)
+        lb = long_ds.batch(TRAIN_BATCH)
+        long_ds.close()
+        if not (lb["y_lengths"] == frames).all():
+            raise AssertionError(f"long corpus y_lengths {lb['y_lengths']}")
+        gen = probe["states"][0].model
+        b = to_device(lb, device)
+        with torch.no_grad():
+            z_p, m, logs, x_mask, y_mask = gen.mas_inputs(
+                b["phones"], b["x_lengths"], b["note_ids"],
+                b["note_durations"], b["shengdiao"], b["spec"],
+                b["y_lengths"])
+            nc, am = mas_neg_cent(z_p, m, logs, x_mask, y_mask)
+        rows["kernel_vs_plain"]["long_batch"] = kernel_equals_plain(
+            nc, am, "a long-corpus batch's neg_cent")
+        rows["long_batch"] = {"x_lengths": lb["x_lengths"].tolist(),
+                              "y_lengths": lb["y_lengths"].tolist()}
+        del probe, gen, b, neg_cent, mask, nc, am
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    rows["phase_s"] = time.time() - start
+    pk, tr = rows["corpora"], rows["train"]["packed"]
+    warm = float(np.median(tr["step_ms"][1:]))
+    rows["warm_ms_per_step"] = warm
+    built = rows["native"]["build_s"]
+    log(f"corpus phase ({rows['phase_s']:.1f} s): native library "
+        f"{rows['native']['library']} "
+        + (f"built in {built:.2f} s" if built is not None
+           else "found built")
+        + f" ({'with' if rows['native']['openmp'] else 'without'} OpenMP)"
+        + "; corpora: "
+        + ", ".join(f"{k} {v['utterances']} x {v['syllables']} syllables "
+                    f"({v['audio_s']:.1f} s of audio, preprocessed in "
+                    f"{v['preprocess_s']:.2f} s, packed "
+                    f"{v['packed_bytes']:,} bytes)" for k, v in pk.items())
+        + f"; first batch x_lengths {rows['first_batch']['x_lengths']} "
+        f"y_lengths {rows['first_batch']['y_lengths']}, packed == npy; "
+        f"batch read npy {rows['batch_ms']['npy']:.1f} ms, packed "
+        f"{rows['batch_ms']['packed']:.1f} ms; --packed {CORPUS_STEPS} "
+        f"steps: cold {tr['step_ms'][0]:.1f} ms, warm {warm:.1f} ms per "
+        f"step, peak {tr['peak_memory_bytes'] / 2 ** 30:.2f} GiB, "
+        f"steps_per_epoch {tr['steps_per_epoch']}; --data-dir 1 step "
+        f"{rows['train']['npy']['step_ms'][0]:.1f} ms, first-step losses "
+        f"equal; MAS kernel {rows['mas_launches']} launches, plain 0; "
+        f"kernel == plain on a corpus step "
+        f"{rows['kernel_vs_plain']['corpus_step']} and a long batch "
+        f"{rows['kernel_vs_plain']['long_batch']}")
+    return rows
+
+
+def shell_request(port, payload: dict, tag: str) -> tuple[dict, float]:
+    t0 = time.time()
+    out = _post(port, payload)
+    wall = time.time() - t0
+    if out.get("code") != 200:
+        raise AssertionError(f"{tag}: {out}")
+    return out, wall
+
+
+def shell_answer(out: dict, tag: str) -> dict:
+    """A shell-path answer: mode, lyrics, lrc and a 44.1 kHz WAV."""
+    from scipy.io import wavfile
+    data = out["data"]
+    if not (data.get("mode") and data["lyrics"] and
+            data["lrc"].startswith("[00:00.00] ")):
+        raise AssertionError(f"{tag}: {data.keys()} {data.get('lrc')!r}")
+    audio = base64.b64decode(data["audio"])
+    rate, wav = wavfile.read(io.BytesIO(audio))
+    if rate != 44100:
+        raise AssertionError(f"{tag}: rate {rate}")
+    return {"mode": data["mode"], "lines": data["lyrics"].count("\n") + 1,
+            "audio_bytes": len(audio), "audio_s": len(wav) / rate}
+
+
+def phase_v1_shell(device) -> dict:
+    """Phase 14b: serve.app's own construction with --variant v1 (the
+    full-width T5 as the shell's lyric_fn, MelodyConfig() and three
+    SVSConfig() singers behind the fallback) and once with
+    MUSIC_BACKEND=new and a stub $DIFFRHYTHM_REPO; requests over HTTP
+    through the shell and through the fallback."""
+    import shutil
+
+    import torch
+    from music_generation_tpu_torch.ops import maximum_path
+    from music_generation_tpu_torch.serve import app
+    start = time.time()
+    if shutil.which("ollama"):
+        raise AssertionError("ollama is on PATH: the lyrics would not come "
+                             "from the T5 on the card")
+    root = SCRATCH / "shell"
+    shutil.rmtree(root, ignore_errors=True)
+    stub = root / "diffrhythm"
+    (stub / "infer").mkdir(parents=True)
+    (stub / "infer" / "infer.py").write_text(DIFFRHYTHM_STUB)
+    rows, requests = {}, {}
+    maximum_path.kernel_launches = 0
+    maximum_path.plain_calls = 0
+    try:
+        t0 = time.time()
+        args, cfg = app.configure(["--variant", "v1", "--device",
+                                   str(device)])
+        service = app.build_service(args, cfg)
+        torch.cuda.synchronize()
+        rows["build_s"] = time.time() - t0
+        shell = service.shell_backend
+        if cfg.backend != "shell" or shell.diffrhythm_repo:
+            raise AssertionError(f"v1 backend {cfg.backend}, DiffRhythm "
+                                 f"{shell.diffrhythm_repo}")
+        if sorted(service.songs.synthesizers) != [0, 1, 2]:
+            raise AssertionError("v1 is not served by three singers")
+        shell.root = str(root / "v1")
+        clock = StageClock(service.lyrics)
+        shell.lyric_fn = clock.generate
+        with serving(service) as port:
+            out, wall = shell_request(port, {"keyword": "夏天"}, "keyword")
+            requests["keyword"] = {"wall_s": wall, "path": "shell",
+                                   **shell_answer(out, "keyword")}
+            if len(clock.seconds) != 1:
+                raise AssertionError(f"lyric_fn called "
+                                     f"{len(clock.seconds)} times")
+            requests["keyword"]["lyric_s"] = clock.seconds[0]
+            out, wall = shell_request(port, {"raw_lyrics": SHELL_RAW},
+                                      "raw_lyrics")
+            if out["data"]["lyrics"] != SHELL_RAW or len(clock.seconds) != 1:
+                raise AssertionError(f"raw_lyrics: {out['data']['lyrics']!r}"
+                                     f", lyric_fn {len(clock.seconds)}")
+            requests["raw_lyrics"] = {"wall_s": wall, "path": "shell",
+                                      **shell_answer(out, "raw_lyrics")}
+            # a shell run that raises: its root is a file
+            (root / "a_file").write_text("not a directory")
+            shell.root = str(root / "a_file")
+            for kind in ("fallback_cold", "fallback_warm"):
+                out, wall = shell_request(port, {"text": SHELL_TEXT}, kind)
+                if "mode" in out["data"]:
+                    raise AssertionError(f"{kind}: answered by the shell")
+                requests[kind] = {"wall_s": wall, "path": "model",
+                                  "audio_s": check_song(kind, out)}
+            requests["fallback_warm"]["profile"] = profiled(
+                lambda: service.handle_synthesis({"text": SHELL_TEXT}))
+        rows["lyric_fn_calls"] = len(clock.seconds)
+        del service, clock, shell
+        torch.cuda.empty_cache()
+
+        t0 = time.time()
+        env = {"MUSIC_BACKEND": "new", "DIFFRHYTHM_REPO": str(stub)}
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            args, cfg = app.configure(["--device", str(device)])
+            service = app.build_service(args, cfg)
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k)
+                else:
+                    os.environ[k] = v
+        rows["music_backend_new_build_s"] = time.time() - t0
+        if cfg.backend != "shell" or args.variant != "svs_v6_multispeaker":
+            raise AssertionError(f"MUSIC_BACKEND=new: {cfg.backend}")
+        service.shell_backend.root = str(root / "new")
+        with serving(service) as port:
+            out, wall = shell_request(
+                port, {"keyword": "星空", "audio_length": 2}, "diffrhythm")
+            made = list((root / "new" / "requests" / "REQ-00001" /
+                         "diffrhythm_output").glob("*.wav"))
+            if len(made) != 1 or base64.b64decode(out["data"]["audio"]) \
+                    != made[0].read_bytes():
+                raise AssertionError("the stub DiffRhythm's WAV did not "
+                                     "come back")
+            requests["diffrhythm"] = {"wall_s": wall,
+                                      "path": "shell + DiffRhythm stub",
+                                      **shell_answer(out, "diffrhythm")}
+        del service
+        if maximum_path.kernel_launches or maximum_path.plain_calls:
+            raise AssertionError("the v1 served path ran MAS")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    rows["requests"] = requests
+    rows["phase_s"] = time.time() - start
+    fb = requests["fallback_warm"]["profile"]
+    log(f"v1 shell phase ({rows['phase_s']:.1f} s): --variant v1 built in "
+        f"{rows['build_s']:.1f} s, MUSIC_BACKEND=new in "
+        f"{rows['music_backend_new_build_s']:.1f} s; "
+        + "; ".join(f"{k} {v['wall_s']:.3f} s via {v['path']}"
+                    + (f" (mode {v['mode']})" if "mode" in v else "")
+                    for k, v in requests.items())
+        + f"; T5 lyric_fn called {rows['lyric_fn_calls']} time(s), "
+        f"{requests['keyword']['lyric_s']:.3f} s; warm fallback profiled "
+        f"{fb['profiled_s']:.3f} s, device busy {fb['device_busy_share']:.3f}"
+        f", {fb['kernel_launches']} launches")
+    return rows
+
+
+def phase_corpus_and_v1(device) -> dict:
+    """Phase 14: corpus training (14a), then v1 served (14b)."""
+    start = time.time()
+    rows = {"corpus": phase_corpus(device), "v1_shell": phase_v1_shell(device)}
+    rows["phase_s"] = time.time() - start
+    log("corpus and v1 phase: " + json.dumps(rows, ensure_ascii=False))
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2683,15 +3159,19 @@ def main() -> int:
     surface = phase_served_surface(device)
     torch.cuda.empty_cache()
     v1_model = phase_v1_model(device)
+    torch.cuda.empty_cache()
+    corpus_v1 = phase_corpus_and_v1(device)
     record = earlier.pop("record")
     record["launches"] = (train["mas_launches"]
                           + f0_variants["train"]["mas_launches"]
-                          + v1_model["train_plain"]["mas_launches"])
+                          + v1_model["train_plain"]["mas_launches"]
+                          + corpus_v1["corpus"]["mas_launches"])
     log(json.dumps(earlier | {"train": train, "checkpoint": checkpoint,
                               "decoders": decoders,
                               "f0_variants": f0_variants,
                               "served_surface": surface,
-                              "v1_model": v1_model},
+                              "v1_model": v1_model,
+                              "corpus_and_v1": corpus_v1},
                    ensure_ascii=False))
     log(json.dumps({"kernels": [record]}))
     log(json.dumps({"ok": True, "device": {

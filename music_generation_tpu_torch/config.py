@@ -16,8 +16,9 @@ class ServiceConfig:
     port: int = 5005
     log_dir: str = "./logs"
     log_name: str = "music_generation_tpu_torch"
-    # "model" = in-process lyric->melody->SVS, the only backend the port
-    # serves; "shell" (MUSIC_BACKEND=new) makes serve.app exit at startup
+    # "model" = in-process lyric->melody->SVS; "shell" = the ollama/
+    # DiffRhythm pipeline (pipeline/shell_backend.py; MUSIC_BACKEND=new or
+    # --variant v1) in front of the model path, which answers when it fails
     backend: str = "model"
     n_speakers: int = 3
     tiny: bool = False           # tiny random models (CI / smoke)

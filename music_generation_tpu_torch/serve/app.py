@@ -1,7 +1,7 @@
 """HTTP song-generation service (stdlib, no flask dependency).
 
-Twin of music_generation_tpu/serve/app.py for the model path, with the same
-wire contract as the reference controllers:
+Twin of music_generation_tpu/serve/app.py, with the same wire contract as
+the reference controllers:
   POST /synthesis_music
     body (json or form): text | keyword, singer_id (0=default, 1, 2)
     -> {code: 200, message, data: {lyrics, audio: <b64 wav>}}
@@ -10,6 +10,11 @@ wire contract as the reference controllers:
     with canned demo songs when ./resources holds them
     errors: 201 missing input, 202 length guard (1..500) on the given or
     generated lyrics, 203 synth error
+    under the shell backend (--variant v1, or MUSIC_BACKEND=new) the
+    request first goes through the mode heuristics (serve/modes.py) and
+    pipeline/shell_backend.py (ollama or the lyric LM, LRC, DiffRhythm or
+    its silent WAV): {code: 200, data: {mode, lyrics, lrc, audio}}; when
+    that does not answer 200, the model path above answers
   POST /synthesis_music_stream (same body) -> audio/wav with
     Transfer-Encoding: chunked: a header of unknown length, then one HTTP
     chunk per vocoder decode window; an error before the first audio byte
@@ -21,7 +26,7 @@ wire contract as the reference controllers:
 
 Run: python -m music_generation_tpu_torch.serve.app --port 5005
      [--variant svs_v6_multispeaker|svs_v5|svs_v5_multispeaker|melody_v2|
-                v1_model]
+                v1_model|v1]
      [--decoder hifigan|istft|mb_istft] [--nsf] [--f0 predict|score]
      [--f0-residual] [--decoder-bf16] [--checkpoint-dir DIR]
      [--lyric-model t5|gpt2] [--fused] [--warmup]
@@ -34,8 +39,9 @@ request through pipeline/fused.py and concurrent ones through the staged
 path and its batcher (a melody with no whole-song form, melody_v2's or
 v1_model's TeleMelody, always takes the staged path); --warmup answers one
 song before serving. v1_model mixes the rendered MIDI accompaniment under
-the vocal. --variant v1 and MUSIC_BACKEND=new exit at startup: the shell
-backend is not ported yet.
+the vocal. --variant v1 and MUSIC_BACKEND=new serve through the shell
+backend, its requests under ./music_pipeline_data, with the lyric LM as its
+in-process lyric source and the variant's model path behind it.
 """
 
 from __future__ import annotations
@@ -57,8 +63,7 @@ from urllib.parse import parse_qs, urlparse
 from ..audio.wav import streaming_wav_header
 from ..config import ServiceConfig
 from ..utils.observability import profile_trace
-from .variants import (VARIANTS, canned_response, check_ported,
-                       variant_song_synthesizer)
+from .variants import VARIANTS, canned_response, variant_song_synthesizer
 
 
 def make_logger(cfg: ServiceConfig) -> logging.Logger:
@@ -85,15 +90,18 @@ class MusicGenerationService:
     ``fused_synthesizer`` (pipeline/fused.py), when given, is picked by
     load: a request alone in flight takes it, concurrent requests take the
     staged path so that the SVS batcher can coalesce them.
-    ``path_counts`` counts the requests each path answered."""
+    ``path_counts`` counts the requests each path answered.
+    ``shell_backend`` (pipeline/shell_backend.py) answers first when
+    ``cfg.backend`` is "shell"."""
 
     def __init__(self, song_synthesizer, lyric_generator=None,
                  cfg: Optional[ServiceConfig] = None,
                  logger: Optional[logging.Logger] = None,
                  canned_dir: Optional[str] = None,
-                 fused_synthesizer=None):
+                 fused_synthesizer=None, shell_backend=None):
         self.songs = song_synthesizer
         self.lyrics = lyric_generator
+        self.shell_backend = shell_backend
         self.canned_dir = canned_dir  # melody_v2's canned demo songs
         self.cfg = cfg or ServiceConfig()
         self.logger = logger or make_logger(self.cfg)
@@ -118,7 +126,37 @@ class MusicGenerationService:
         if self._batcher is not None:
             self._batcher.close()
 
+    def handle_pipeline(self, data: dict) -> dict:
+        """Shell-pipeline path (v1 controller parity): mode heuristics ->
+        ShellPipelineBackend -> {mode, lyrics, lrc, audio}."""
+        from .modes import decide_mode
+        mode, payload = decide_mode(data)
+        if mode is None:
+            return {"code": 201,
+                    "message": "输入参数错误：请提供 keyword/theme（主题）或 "
+                               "text/raw_lyrics（歌词）。"}
+        self.logger.info("判定模式：%s；payload_keys=%s", mode,
+                         list(payload.keys()))
+        try:
+            result = self.shell_backend.run(payload)
+            with open(result["audio_path"], "rb") as f:
+                audio_b64 = base64.b64encode(f.read()).decode("ascii")
+            return {"code": 200, "message": "success！",
+                    "data": {"mode": mode, "lyrics": result["lyrics"],
+                             "lrc": result["lrc"], "audio": audio_b64}}
+        except Exception:
+            self.logger.error("pipeline failed:\n%s", traceback.format_exc())
+            return {"code": 203, "message": "服务器错误：生成失败（pipeline）"}
+
     def handle_synthesis(self, data: dict) -> dict:
+        if self.cfg.backend == "shell" and self.shell_backend is not None:
+            result = self.handle_pipeline(data)
+            # graceful fallback to the model path (parity:
+            # controllers_music_generation_svs_v5/syn_music.py:97-120)
+            if result["code"] == 200 or self.songs is None:
+                return result
+            self.logger.info("shell backend failed -> falling back to model "
+                             "path")
         return self._handle_model_path(data)
 
     def _resolve_text(self, data: dict):
@@ -406,7 +444,7 @@ def make_http_server(service: MusicGenerationService, host: str, port: int,
 def configure(argv=None):
     """Parse the command line and resolve the service config (--config
     file, then the environment, then the flags): (args, cfg). Exits 2 for
-    what the port cannot serve."""
+    a flag combination the server cannot serve."""
     parser = argparse.ArgumentParser(
         description="music_generation_tpu_torch server (PyTorch/CUDA)")
     parser.add_argument("--config", default=None)
@@ -416,8 +454,8 @@ def configure(argv=None):
                         help="random tiny models (smoke testing)")
     parser.add_argument("--variant", default="svs_v6_multispeaker",
                         choices=sorted(VARIANTS),
-                        help="reference server variant preset (v1, the "
-                             "shell backend, is not ported yet and exits)")
+                        help="reference server variant preset (v1: the "
+                             "shell backend in front of the model path)")
     parser.add_argument("--lyric-model", default="t5", choices=["t5", "gpt2"],
                         help="lyric LM for keyword requests")
     parser.add_argument("--decoder", default="hifigan",
@@ -472,18 +510,12 @@ def configure(argv=None):
         # NSF excitation is wired into the HiFi-GAN decoder only
         parser.error("--nsf requires --decoder hifigan")
     spec = VARIANTS[args.variant]
-    try:
-        check_ported(spec)
-    except NotImplementedError as e:
-        parser.error(str(e))
 
     cfg = ServiceConfig.from_file(args.config) if args.config \
         else ServiceConfig()
     cfg = ServiceConfig.from_env(cfg)
-    if cfg.backend != "model":
-        parser.error(f"backend {cfg.backend!r} (MUSIC_BACKEND=new): the "
-                     f"shell backend (ollama/DiffRhythm pipeline) is not "
-                     f"ported yet (ROADMAP.md Queue 1 item 9)")
+    if spec.backend == "shell":
+        cfg.backend = "shell"
     if args.port:
         cfg.port = args.port
     if args.host:
@@ -542,7 +574,9 @@ def warm_up(service: MusicGenerationService) -> dict:
 def build_service(args, cfg: ServiceConfig) -> MusicGenerationService:
     """The service main() serves, from configure()'s (args, cfg): the song
     pipeline (build_songs), the lyric LM, the fused path under --fused,
-    and the --warmup request, whose outcome stays as ``service.warmup``."""
+    the shell backend around the lyric LM (answering first when
+    ``cfg.backend`` is "shell") and the --warmup request, whose outcome
+    stays as ``service.warmup``."""
     logger = make_logger(cfg)
     from ..models.lyrics import build_lyric_generator
     songs = build_songs(args, cfg)
@@ -560,10 +594,12 @@ def build_service(args, cfg: ServiceConfig) -> MusicGenerationService:
             logger.warning("--fused needs the transformer melody (variant "
                            "%s uses %s): ignored", args.variant,
                            type(songs.melody).__name__)
+    from ..pipeline.shell_backend import ShellPipelineBackend
     service = MusicGenerationService(
         songs, lyrics, cfg, logger,
         canned_dir=VARIANTS[args.variant].canned_dir,
-        fused_synthesizer=fused)
+        fused_synthesizer=fused,
+        shell_backend=ShellPipelineBackend(lyric_fn=lyrics.generate))
     if args.warmup:
         service.warmup = warm_up(service)
     return service
@@ -572,11 +608,12 @@ def build_service(args, cfg: ServiceConfig) -> MusicGenerationService:
 def main(argv=None):
     args, cfg = configure(argv)
     logger = make_logger(cfg)
-    logger.info("loading models (variant=%s, decoder=%s, nsf=%s, f0=%s, "
-                "f0_residual=%s, decoder_bf16=%s, tiny=%s, lyric model=%s, "
-                "fused=%s, device=%s)...", args.variant, args.decoder,
-                args.nsf, args.f0, args.f0_residual, args.decoder_bf16,
-                cfg.tiny, args.lyric_model, args.fused, args.device)
+    logger.info("loading models (variant=%s, backend=%s, decoder=%s, nsf=%s, "
+                "f0=%s, f0_residual=%s, decoder_bf16=%s, tiny=%s, lyric "
+                "model=%s, fused=%s, device=%s)...", args.variant,
+                cfg.backend, args.decoder, args.nsf, args.f0,
+                args.f0_residual, args.decoder_bf16, cfg.tiny,
+                args.lyric_model, args.fused, args.device)
     import torch
     # full float32, the precision the port is held to against the JAX
     # package (cuDNN would otherwise run the convolutions in TF32)

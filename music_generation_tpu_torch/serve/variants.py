@@ -9,8 +9,9 @@ preset reproduces one:
   svs_v5        T5 lyrics + transformer melody w/ SDP durations
   svs_v5_ms     v5 + 3 speakers
   svs_v6_ms     T5 lyrics + transformer melody w/ MSE durations + 3 speakers
-The port serves every preset but v1: the shell backend is not ported yet
-(ROADMAP.md, Queue 1 item 9) and raises NotImplementedError.
+The port serves every preset; v1's shell backend is
+pipeline/shell_backend.py in front of the default model path
+(serve.app.MusicGenerationService.handle_synthesis).
 """
 
 from __future__ import annotations
@@ -51,16 +52,6 @@ VARIANTS = {
 }
 
 
-def check_ported(spec: VariantSpec) -> None:
-    """Raise NotImplementedError, naming what is missing, for a variant
-    the port cannot serve yet."""
-    if spec.backend == "shell":
-        raise NotImplementedError(
-            f"variant {spec.name}: the shell backend (ollama/DiffRhythm "
-            f"pipeline, serve/modes.py) is not ported yet "
-            f"(ROADMAP.md Queue 1 item 9)")
-
-
 def canned_response(keyword: str, canned_dir: Optional[str]):
     """Canned demo songs for specific keywords (parity:
     controllers_music_generation_melody_v2/syn_music.py:30-54)."""
@@ -87,7 +78,6 @@ def build_melody_generator(spec: VariantSpec, tiny: bool = False,
                            seed: int = 0, device=None):
     """Melody generator for a variant (the pipeline dispatch axis), on
     ``device`` (default cuda)."""
-    check_ported(spec)
     if spec.melody in ("mse", "sdp"):
         from ..pipeline.synthesis import build_melody_generator as build
         return build(tiny, seed, device, duration_variant=spec.melody)

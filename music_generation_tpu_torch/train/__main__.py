@@ -2,18 +2,28 @@
 
 Usage:
   python -m music_generation_tpu_torch.train --steps 1000 --ckpt-dir ./ckpts \
+      [--data-dir NPY_DIR | --packed PREFIX] [--log-images]
       [--tiny] [--durations mas] [--decoder hifigan|istft|mb_istft]
       [--nsf] [--f0-residual] [--device cpu]
 
-Twin of ``python -m music_generation_tpu.train`` on synthetic batches
-(train.data.synthetic_batch, seeded by the step) with random-init weights.
+Twin of ``python -m music_generation_tpu.train`` on one device, with
+random-init weights. Batches come from a preprocessed corpus,
+``--data-dir`` (train.dataset.NpyDataset: the npy directory that
+``python -m music_generation_tpu_torch.train.dataset`` or ``.toydata``
+writes) or ``--packed`` (train.dataset.PackedDataset: PREFIX.data/.idx from
+pack_dataset, either package's), both seeded 0 as the JAX CLI seeds them on
+one process, with the learning rate decayed once per epoch of
+len(dataset) // batch-size steps; else synthetic batches
+(train.data.synthetic_batch, seeded by the step). ``--log-images`` writes
+the debug images of each logged step under <ckpt-dir>/logs/images.
 Runs on ``cuda`` unless given ``--device``; it never falls back to the CPU.
 ``--durations mas`` aligns each step with monotonic alignment search, which
 on a CUDA device launches the hand-written kernel. Flags of the JAX CLI
-that are not ported yet (--bf16, --data-dir, --packed, --multihost,
---n-model > 1, --log-images) exit with an error that names them.
-``tools/torch_export_trained_svs.py`` turns a step_<n>.pt into the
-per-singer files ``serve.app --checkpoint-dir`` serves.
+that are not ported yet (--bf16, --multihost, --coordinator, --nprocs,
+--proc-id, --n-model > 1) exit with an error that names them and their
+ROADMAP.md item. ``tools/torch_export_trained_svs.py`` turns a
+step_<n>.pt into the per-singer files ``serve.app --checkpoint-dir``
+serves.
 """
 
 import argparse
@@ -40,6 +50,18 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--tiny", action="store_true")
     p.add_argument("--device", default=None,
                    help="torch device (default cuda)")
+    corpus = p.add_mutually_exclusive_group()
+    corpus.add_argument("--data-dir", default=None,
+                        help="preprocessed npy corpus directory "
+                             "(train.dataset / train.toydata output)")
+    corpus.add_argument("--packed", default=None, metavar="PREFIX",
+                        help="packed indexed corpus PREFIX.data/.idx (see "
+                             "train.dataset pack_dataset)")
+    p.add_argument("--log-images", action="store_true",
+                   help="write spectrogram and alignment heatmaps with each "
+                        "metrics log (PNGs, or .npy without matplotlib, "
+                        "under <ckpt-dir>/logs/images; TensorBoard when "
+                        "installed)")
     p.add_argument("--prefetch", type=int, default=2,
                    help="prefetch depth: assemble + copy the next N batches "
                         "on a background thread (0 = synchronous)")
@@ -67,11 +89,10 @@ def _parser() -> argparse.ArgumentParser:
                         "output is a deviation added to the score note's "
                         "log-F0 (SVSConfig.f0_residual)")
     # flags of the JAX CLI that the port does not implement yet
-    for flag in ("bf16", "log-images", "multihost"):
+    for flag in ("bf16", "multihost"):
         p.add_argument(f"--{flag}", action="store_true",
                        help="not yet ported")
-    for flag in ("data-dir", "packed", "coordinator"):
-        p.add_argument(f"--{flag}", default=None, help="not yet ported")
+    p.add_argument("--coordinator", default=None, help="not yet ported")
     p.add_argument("--nprocs", type=int, default=None, help="not yet ported")
     p.add_argument("--proc-id", type=int, default=None,
                    help="not yet ported")
@@ -80,15 +101,21 @@ def _parser() -> argparse.ArgumentParser:
     return p
 
 
+# unported flag -> its ROADMAP.md Queue 1 item
+UNPORTED = {"bf16": 7, "multihost": 10, "coordinator": 10, "nprocs": 10,
+            "proc_id": 10}
+
+
 def main(argv=None):
     p = _parser()
     args = p.parse_args(argv)
-    for name in ("bf16", "log_images", "multihost", "data_dir", "packed",
-                 "coordinator", "nprocs", "proc_id"):
-        if getattr(args, name) not in (None, False):
-            p.error(f"--{name.replace('_', '-')} is not yet ported")
+    for name, item in UNPORTED.items():
+        if getattr(args, name) != p.get_default(name):
+            p.error(f"--{name.replace('_', '-')} is not yet ported "
+                    f"(ROADMAP.md Queue 1 item {item})")
     if args.n_model != 1:
-        p.error("--n-model > 1 is not yet ported")
+        p.error("--n-model > 1 is not yet ported (ROADMAP.md Queue 1 item "
+                "10)")
 
     import torch
 
@@ -111,7 +138,8 @@ def main(argv=None):
     tcfg = TrainConfig(accumulate_grad_batches=args.accumulate_grad_batches,
                        use_mas=args.durations == "mas",
                        disc_lr_scale=args.disc_lr_scale,
-                       warmup_steps=args.warmup_steps)
+                       warmup_steps=args.warmup_steps,
+                       log_images=args.log_images)
     for field, val in (("c_kl_rev", args.c_kl_rev), ("c_adv", args.c_adv),
                        ("c_fm", args.c_fm), ("c_mel", args.c_mel),
                        ("c_stft", args.c_stft), ("c_energy", args.c_energy),
@@ -123,7 +151,27 @@ def main(argv=None):
         if val is not None:
             tcfg = dataclasses.replace(tcfg, **{field: val})
 
+    dataset = None
+    if args.packed or args.data_dir:
+        from .dataset import NpyDataset, PackedDataset
+        # seed 0: the JAX CLI seeds each process's stream by its index
+        source, cls = ((args.packed, PackedDataset) if args.packed
+                       else (args.data_dir, NpyDataset))
+        dataset = cls(source, svs_cfg, t_phones=t_phones, t_frames=t_frames,
+                      seed=0)
+        if not len(dataset):
+            p.error(f"no utterances in {source}")
+        # the reference decays the LR once per epoch (ExponentialLR with
+        # configs/ours.json's lr_decay)
+        tcfg = dataclasses.replace(tcfg, steps_per_epoch=max(
+            1, len(dataset) // args.batch_size))
+        print(f"dataset: {len(dataset)} utterances from {source} "
+              f"({'packed' if args.packed else 'npy'}); steps_per_epoch "
+              f"{tcfg.steps_per_epoch}")
+
     def next_batch(step):
+        if dataset is not None:
+            return dataset.batch(args.batch_size)
         return synthetic_batch(svs_cfg, batch=args.batch_size,
                                t_phones=t_phones, t_frames=t_frames,
                                seed=step)
@@ -157,7 +205,8 @@ def main(argv=None):
         for step, batch in batches:
             metrics = train_step(gen_state, disc_state, batch, generator)
             if step % args.log_every == 0:
-                m = {k: round(float(v), 4) for k, v in metrics.items()}
+                m = {k: round(float(v), 4) for k, v in metrics.items()
+                     if v.ndim == 0}
                 print(f"step {start_step + step} ({time.time() - t0:.1f}s): "
                       f"{m}")
                 writer.write(start_step + step, metrics)
@@ -169,6 +218,8 @@ def main(argv=None):
         if feed is not None:  # stop the producer on a consumer error too
             feed.close()
         writer.close()
+        if hasattr(dataset, "close"):  # a PackedDataset's mapped file
+            dataset.close()
     save_checkpoint(ckpt_dir, gen_state, disc_state, start_step + args.steps,
                     keep_last=args.keep_last,
                     metric=(float(metrics["loss_mel"])

@@ -33,8 +33,10 @@ from . import losses
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """The JAX package's TrainConfig, field for field (its comments give
-    each default's reason). ``bf16_run`` and ``log_images`` are not ported
-    yet and must stay False."""
+    each default's reason). ``bf16_run`` is not ported yet and must stay
+    False. ``log_images`` adds the first item's mel and spectrogram
+    predictions, spectrogram target and phone-to-frame alignment to each
+    step's metrics, as device tensors (MetricsWriter renders them)."""
     learning_rate: float = 2e-4
     betas: tuple = (0.8, 0.99)
     eps: float = 1e-9
@@ -171,9 +173,9 @@ def create_states(svs_cfg: SVSConfig, train_cfg: TrainConfig, device=None
     (the global torch RNG is left as it was), on ``device``: cuda unless
     the caller asks for another; no GPU raises (see device.py)."""
     device = resolve_device(device)
-    if train_cfg.bf16_run or train_cfg.log_images:
-        raise NotImplementedError("bf16_run and log_images are not yet "
-                                  "ported")
+    if train_cfg.bf16_run:
+        raise NotImplementedError("bf16_run is not yet ported (ROADMAP.md "
+                                  "Queue 1 item 7)")
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(train_cfg.seed)
         gen = VISinger(svs_cfg)
@@ -275,13 +277,38 @@ def generator_loss(disc, out: dict, batch: dict, svs_cfg: SVSConfig,
     # tanh-saturation telemetry (see the JAX package's gen_loss_fn)
     metrics["audio_dc"] = audio.detach().mean()
     metrics["audio_sat_frac"] = (audio.detach().abs() > 0.95).float().mean()
+    if tc.log_images:
+        metrics.update(debug_images(out, batch, svs_cfg))
     return total, metrics
+
+
+def debug_images(out: dict, batch: dict, svs_cfg: SVSConfig) -> dict:
+    """The first item's debug images, detached on the batch's device: the
+    mel prediction [F, n_mels], in the AE variant the spectrogram
+    prediction and target [F, spec_channels], and the phone-to-frame
+    alignment [F, T] (parity: the reference's plot_alignment_to_numpy,
+    VISinger/utils/plot.py:24-45) drawn from the durations that drove the
+    length regulator, so under --durations mas it shows the learned
+    alignment."""
+    images = {"img_mel_predict": out["mel_predict"][0].detach()}
+    if svs_cfg.autoencoder:
+        images["img_spec_predict"] = out["spec_predict"][0].detach()
+        images["img_spec_target"] = batch["spec"][0]
+    tgt = out["duration_targets"][0].float()
+    ends = torch.cumsum(tgt, dim=0)
+    starts = ends - tgt
+    t_idx = torch.arange(out["mel_predict"].shape[1], device=tgt.device,
+                         dtype=torch.float32)[:, None]
+    images["img_alignment"] = ((t_idx >= starts[None, :])
+                               & (t_idx < ends[None, :])).float()
+    return images
 
 
 def make_train_step(svs_cfg: SVSConfig, train_cfg: TrainConfig):
     """train_step(gen_state, disc_state, batch, generator) -> metrics: one
     GAN step on a batch of tensors, updating both states in place. The
-    metrics are 0-dim tensors on the batch's device."""
+    metrics are 0-dim tensors on the batch's device (and, with
+    ``log_images``, the debug_images tensors)."""
     tc = train_cfg
 
     def train_step(gen_state: TrainState, disc_state: TrainState,

@@ -11,7 +11,7 @@
 - tools/torch_export_trained_svs.py: a port trainer step_<n>.pt to the
   served weights;
 - serve.app's main() with --checkpoint-dir and a certificate (HTTPS),
-  and MUSIC_BACKEND=new refused.
+  and MUSIC_BACKEND=new configuring the shell backend.
 Tolerances: the waveform of VISinger.infer within 1e-4 relative L2 of the
 JAX package's (tests/test_torch_svs.py), teacher-forced note log-probs and
 MSE log-durations within 1e-5 (tests/test_torch_melody.py); copied
@@ -554,11 +554,13 @@ def test_served_checkpoint_over_https(source, served_dir, tmp_path,
 
 
 def test_shell_backend_refused(monkeypatch, capsys):
-    """MUSIC_BACKEND=new selects the shell backend, which is not ported:
-    main() exits 2 before building anything."""
+    """MUSIC_BACKEND=new selects the shell backend, which is no longer
+    refused: configure() sets it and main()'s service is built around it
+    (served end to end: tests/test_torch_shell_pipeline.py)."""
     monkeypatch.setenv("MUSIC_BACKEND", "new")
-    with pytest.raises(SystemExit) as e:
-        t_app.main(["--tiny", "--device", "cpu"])
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert "shell backend" in err and "item 9" in err
+    args, cfg = t_app.configure(["--tiny", "--device", "cpu"])
+    assert cfg.backend == "shell" and args.variant == "svs_v6_multispeaker"
+    assert "shell backend" not in capsys.readouterr().err
+    monkeypatch.setenv("MUSIC_BACKEND", "old")
+    assert t_app.configure(["--tiny", "--device", "cpu"])[1].backend == \
+        "model"

@@ -317,13 +317,17 @@ def test_variant_table_and_canned_response(tmp_path):
 
 @pytest.mark.parametrize("variant,missing", [("v1", "shell backend")])
 def test_unported_variants_exit_at_startup(variant, missing, capsys):
-    with pytest.raises(SystemExit) as e:
-        t_app.main(["--variant", variant, "--tiny", "--device", "cpu"])
-    assert e.value.code == 2
-    assert missing in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_var.build_melody_generator(t_var.VARIANTS[variant], tiny=True,
-                                     device="cpu")
+    """No variant exits at startup any more: v1, the last one refused (for
+    its shell backend), configures that backend in front of its model
+    path, whose melody generator builds (served:
+    tests/test_torch_shell_pipeline.py)."""
+    args, cfg = t_app.configure(["--variant", variant, "--tiny", "--device",
+                                 "cpu"])
+    assert t_var.VARIANTS[variant].backend == "shell" == cfg.backend
+    assert missing not in capsys.readouterr().err
+    melody = t_var.build_melody_generator(t_var.VARIANTS[variant], tiny=True,
+                                          device="cpu")
+    assert melody.duration_variant == "mse"
 
 
 def test_variant_server_refuses_missing_gpu():

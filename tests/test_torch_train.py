@@ -458,13 +458,18 @@ def test_cli_trains_with_mas_on_cpu_and_resumes(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--bf16"], ["--data-dir", "x"], ["--packed", "x"], ["--multihost"],
-    ["--n-model", "2"], ["--log-images"], ["--coordinator", "x"]])
+    ["--bf16"], ["--nprocs", "2"], ["--proc-id", "0"], ["--multihost"],
+    ["--n-model", "2"], ["--bf16", "--packed", "x"], ["--coordinator", "x"]])
 def test_cli_refuses_unported_flags(flag, capsys):
+    """Each unported flag exits 2 naming itself and its ROADMAP.md item,
+    before a corpus is read (--data-dir, --packed and --log-images are
+    ported: tests/test_torch_dataset.py)."""
     with pytest.raises(SystemExit) as e:
         train_main(["--tiny", "--device", "cpu", "--steps", "1"] + flag)
     assert e.value.code == 2
-    assert "not yet ported" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "not yet ported" in err and "ROADMAP.md Queue 1 item" in err
+    assert flag[0] in err
 
 
 def test_cli_refuses_missing_gpu(tmp_path):
