@@ -138,17 +138,40 @@ Phases, each fatal on failure (no exception is caught):
               a request whose shell run raises answered by the model path
               (cold and warm, the warm one profiled), and the stub
               DiffRhythm's WAV returned
+ 15. seq train  the eight train.seq families (melody_note,
+              melody_note_prev, seq2seq, telemelody, duration_mse,
+              duration_sdp, gpt2, t5) at their default configs, B=16, toy
+              data: parameter count; the first loss on the card against a
+              CPU twin (dropout 0, same weights and batch, the SDP's
+              posterior noise injected; t5's twin at 2 of its 12 layers);
+              seven steps with dropout on through make_seq_train_step
+              (warm ms, peak memory, launches of a profiled step), then
+              more, untimed, until the loss is below the first (at most
+              40); then the trainer CLI with --bf16 --durations mas at
+              full width, B=8, four steps: every loss term of its first
+              step within 20 % of a float32 step on the same weights,
+              batch and draws, the masters float32 and moved, MAS twice
+              per step, the kernel bit for bit against the plain version
+              on a bf16 step's neg_cent, ms and peak memory beside phase
+              8's float32 step; then melody_note and duration_mse trained
+              three steps (train_family, checkpoints), exported by
+              tools/torch_export_trained_melody.py and loaded by
+              load_pipeline into the served melody generator: every tensor
+              and the served notes and durations of a text equal to the
+              trained modules
 Launch counts are zeroed just before each main path and read just after
 it: phases 3-4 (the served slices), phase 5 (the variants, which align
 nothing: no MAS launch, kernel or plain), phase 8 (training), each
 decoder's training steps in phase 10, phase 11's training steps and its
 served configurations, phase 12 (which aligns nothing), phase 13's
-served paths (none) and its training step, and phase 14's two corpus
-training runs and its served v1 paths (none). The kernels line reports
-the launches of phases 8, 11, 13 and 14's training. The lyric LMs and TeleMelody
-launch no hand-written kernel. All phases run in full float32 (TF32 is off for
-matmuls and cuDNN convolutions), except phase 11's --decoder-bf16
-decoders, which run in bfloat16. The last stdout line is the result JSON;
+served paths (none) and its training step, phase 14's two corpus
+training runs and its served v1 paths (none), and phase 15's families
+(none) and its --bf16 CLI run. The kernels line reports the launches of
+phases 8, 11, 13, 14 and 15's training. The lyric LMs, TeleMelody and the
+other train.seq families launch no hand-written kernel. All phases run in
+full float32 (TF32 is off for matmuls and cuDNN convolutions), except
+phase 11's --decoder-bf16 decoders and phase 15's --bf16 steps, which
+compute from bfloat16 casts. The last stdout line is the result JSON;
 it is printed only when every phase passed. Exits non-zero without a CUDA
 device.
 """
@@ -3126,6 +3149,292 @@ def phase_corpus_and_v1(device) -> dict:
     return rows
 
 
+SEQ_BATCH = 16            # train.seq's --batch-size default
+SEQ_STEPS = 7             # one cold, five warm (timed), one profiled
+SEQ_MAX_STEPS = 40        # the most steps a family takes to show its
+                          # loss below its first
+SEQ_LOSS_REL_LIMIT = 1e-4  # card against CPU, each family's first loss
+BF16_LOSS_REL_LIMIT = 0.2  # each bf16 loss term against float32's (the
+                           # JAX package's tests/test_train.py bound)
+BF16_STEPS = 4            # one cold, three warm
+
+
+def seq_cpu_twin(family, model):
+    """The family's model at dropout 0 on the CPU, the card model's full
+    config, except t5 at 2 of its 12 encoder and decoder layers (a
+    full-width CPU forward of its 239 M parameters takes too long here).
+    Returns (cpu model, note)."""
+    import dataclasses
+
+    import torch
+    from music_generation_tpu_torch.models.lyrics import T5
+    from music_generation_tpu_torch.train import seq
+    if family == "t5":
+        cfg = dataclasses.replace(model.cfg, num_layers=2,
+                                  num_decoder_layers=2)
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(SEED)
+            return T5(cfg), "2 of 12 encoder and decoder layers"
+    cpu, _, _ = seq.build_family(family, False, None, SEED, "cpu")
+    for m in cpu.modules():  # dropout off: every rate 0
+        if hasattr(m, "dropout_rate"):
+            m.dropout_rate = 0.0
+    return cpu, "full width"
+
+
+def seq_family_run(device, family) -> dict:
+    """One train.seq family at its default (full) config on the card: its
+    first loss against a CPU twin (dropout 0, same weights and batch, the
+    SDP's posterior noise injected), then SEQ_STEPS training steps with
+    dropout on through make_seq_train_step: warm ms, peak memory,
+    launches of a profiled step, the loss falling."""
+    import copy as copy_mod
+
+    import torch
+    from music_generation_tpu_torch.train import seq, to_device
+    from music_generation_tpu_torch.train.seq_losses import (
+        SeqOptimizer, make_seq_train_step)
+    t0 = time.time()
+    model, loss_fn, batcher = seq.build_family(family, False, None, SEED,
+                                               device)
+    n_params = sum(p.numel() for p in model.parameters())
+    cpu, note = seq_cpu_twin(family, model)
+    card = copy_mod.deepcopy(cpu).to(device)
+    batch = batcher.batch(SEQ_BATCH)
+    if family == "duration_sdp":
+        batch["e_q"] = np.random.RandomState(SEED).randn(
+            *batch["src"].shape, 2).astype(np.float32)
+    with torch.no_grad():
+        want = float(loss_fn(cpu, to_device(batch, "cpu"),
+                             torch.Generator().manual_seed(SEED)))
+        got = float(loss_fn(card, to_device(batch, device),
+                            torch.Generator(device).manual_seed(SEED)))
+    rel = abs(got - want) / abs(want)
+    if not rel < SEQ_LOSS_REL_LIMIT:
+        raise AssertionError(f"{family}: first loss card {got} CPU {want}")
+    del cpu, card
+    build_s = time.time() - t0
+
+    opt = SeqOptimizer(model.parameters(), 3e-4)
+    step = make_seq_train_step(loss_fn, model, opt)
+    generator = torch.Generator(device).manual_seed(SEED + 1)
+    batches = [to_device(batcher.batch(SEQ_BATCH), device)
+               for _ in range(SEQ_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for i in range(SEQ_STEPS - 1):
+        t1 = time.perf_counter()
+        losses.append(step(batches[i], generator))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+    prof = profiled(lambda: losses.append(step(batches[-1], generator)))
+    losses = [float(x) for x in losses]
+    # a family whose loss has not fallen below its first in SEQ_STEPS
+    # steps trains on (untimed) until it does, up to SEQ_MAX_STEPS
+    while not losses[-1] < losses[0] and len(losses) < SEQ_MAX_STEPS:
+        losses.append(float(step(to_device(batcher.batch(SEQ_BATCH),
+                                           device), generator)))
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{family}: losses {losses}")
+    return {"family": family, "parameters": n_params,
+            "first_loss_card": got, "first_loss_cpu": want,
+            "first_loss_rel": rel, "cpu_twin": note,
+            "cold_ms": times[0], "warm_ms": times[1:],
+            "ms_per_step": float(np.median(times[1:])),
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "launches_per_step": prof["kernel_launches"],
+            "device_busy_share": prof["device_busy_share"],
+            "top_kernels": prof["top_kernels"][:3], "losses": losses,
+            "steps_to_fall": len(losses) - 1,
+            "build_and_compare_s": build_s}
+
+
+def bf16_train_run(device, f32_row: dict) -> dict:
+    """The trainer CLI with --bf16 --durations mas at full width, B=8
+    (BF16_STEPS steps), against a float32 step on the same weights
+    (create_states' seed), batch (the CLI's first, synthetic seed 0) and
+    generator (the trainer's seed): every loss term within
+    BF16_LOSS_REL_LIMIT, the masters float32 and moved, MAS twice per
+    step, and the kernel bit for bit against the plain version on the
+    bf16 step's neg_cent cast to float32. Beside it phase 8's float32 ms
+    and peak memory."""
+    import shutil
+
+    import torch
+    from music_generation_tpu_torch.ops import maximum_path
+    from music_generation_tpu_torch.train import (TrainConfig,
+                                                  build_svs_config,
+                                                  create_states,
+                                                  make_train_step,
+                                                  synthetic_batch, to_device,
+                                                  tool_shapes)
+    from music_generation_tpu_torch.train.__main__ import main as train_main
+    # the CLI's configuration at full width
+    cfg = build_svs_config(tiny=False)
+    tc = TrainConfig(use_mas=True, warmup_steps=0)
+    phones, frames = tool_shapes(False)
+    gen_state, disc_state = create_states(cfg, tc, device)
+    before = {f"{tag}.{n}": p.detach().clone()
+              for tag, st in (("gen", gen_state), ("disc", disc_state))
+              for n, p in st.model.named_parameters()}
+    batch = to_device(synthetic_batch(cfg, batch=TRAIN_BATCH,
+                                      t_phones=phones, t_frames=frames,
+                                      seed=0), device)
+    f32 = {k: float(v) for k, v in make_train_step(cfg, tc)(
+        gen_state, disc_state, batch,
+        torch.Generator(device).manual_seed(tc.seed)).items()}
+    del gen_state, disc_state, batch
+    torch.cuda.empty_cache()
+
+    ckpt_dir = SCRATCH / "bf16"
+    maximum_path.kernel_launches = 0
+    maximum_path.plain_calls = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    try:
+        with trainer_probe() as probe:
+            train_main(["--device", str(device), "--bf16", "--durations",
+                        "mas", "--steps", str(BF16_STEPS), "--batch-size",
+                        str(TRAIN_BATCH), "--log-every", "1",
+                        "--warmup-steps", "0", "--ckpt-dir", str(ckpt_dir)])
+        wall = time.time() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = maximum_path.kernel_launches
+        plain = maximum_path.plain_calls
+        with open(ckpt_dir / "logs" / "train_metrics.jsonl") as fh:
+            first = json.loads(fh.readline())
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)  # a 1.2 GB step file
+    if launches != 2 * BF16_STEPS or plain:
+        raise AssertionError(f"--bf16: {BF16_STEPS} steps launched the MAS "
+                             f"kernel {launches} times (plain {plain})")
+    rel = {k: abs(first[k] - v) / (abs(v) + 1e-3) for k, v in f32.items()}
+    if not all(np.isfinite(first[k]) for k in f32) or \
+            max(rel.values()) >= BF16_LOSS_REL_LIMIT:
+        raise AssertionError(f"--bf16 first step {first} against float32 "
+                             f"{f32}")
+    states = probe["states"]
+    masters = {p.dtype for st in states for p in st.model.parameters()}
+    moved = sum(not torch.equal(before[f"{tag}.{n}"], p)
+                for tag, st in zip(("gen", "disc"), states)
+                for n, p in st.model.named_parameters())
+    if masters != {torch.float32} or not moved:
+        raise AssertionError(f"--bf16 masters {masters}, {moved} moved")
+    del before, probe["states"]
+    neg_cent, attn = probe["neg_cent"]
+    shape = kernel_equals_plain(neg_cent.float(), attn.float(),
+                                "a --bf16 step's neg_cent")
+    # the share of each item's scores that repeat a value of the item
+    ties = float(np.mean([1 - torch.unique(r).numel() / r.numel()
+                          for r in neg_cent.float().flatten(1).cpu()]))
+    warm = probe["step_ms"][1:]
+    return {"steps": BF16_STEPS, "wall_s": wall,
+            "cold_ms": probe["step_ms"][0], "warm_ms": warm,
+            "ms_per_step": float(np.median(warm)),
+            "f32_ms_per_step_phase8": f32_row["ms_per_step"],
+            "peak_memory_bytes": peak,
+            "f32_peak_memory_bytes_phase8": f32_row["peak_memory_bytes"],
+            "loss_rel_to_f32": rel, "loss_rel_max": max(rel.values()),
+            "losses_first_bf16": {k: first[k] for k in f32},
+            "losses_first_f32": f32, "masters": str(masters.pop()),
+            "parameters_moved": moved, "mas_launches": launches,
+            "neg_cent_dtype": str(neg_cent.dtype),
+            "neg_cent_repeated_share": ties, "neg_cent_shape": shape}
+
+
+def melody_export_served(device) -> dict:
+    """melody_note and duration_mse trained 3 steps at full width
+    (train_family, B=16, checkpoints), exported by
+    tools/torch_export_trained_melody.py, loaded by load_pipeline into the
+    full-width served melody generator (from another seed): every tensor
+    equal to the trained modules', and the served notes and durations of
+    a text equal to those of the trained modules run directly."""
+    import shutil
+    import types
+
+    import torch
+    from music_generation_tpu_torch.compat import load_pipeline
+    from music_generation_tpu_torch.pipeline.synthesis import \
+        build_melody_generator
+    from music_generation_tpu_torch.train import seq
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
+    import torch_export_trained_melody
+    root = SCRATCH / "melody"
+    t0 = time.time()
+    try:
+        trained = {fam: seq.train_family(
+            fam, steps=3, ckpt_dir=str(root / "ck"), seed=SEED,
+            device=device, return_model=True, log_every=10)[1]
+            for fam in ("melody_note", "duration_mse")}
+        torch_export_trained_melody.main([
+            "--notes", str(root / "ck" / "melody_note" / "step_3.pt"),
+            "--duration", str(root / "ck" / "duration_mse" / "step_3.pt"),
+            "--out", str(root / "served")])
+        served = build_melody_generator(seed=SEED + 5, device=device)
+        loaded = load_pipeline(str(root / "served"), types.SimpleNamespace(
+            synthesizers={}, melody=served))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if loaded != ["melody_notes.pt", "melody_duration.pt"]:
+        raise AssertionError(f"load_pipeline loaded {loaded}")
+    direct = build_melody_generator(seed=SEED + 6, device=device)
+    direct.note_model = trained["melody_note"].eval()
+    direct.duration_model = trained["duration_mse"].eval()
+    equal = sum(torch.equal(a, b) for m in ("note_model", "duration_model")
+                for a, b in zip(getattr(served, m).state_dict().values(),
+                                getattr(direct, m).state_dict().values()))
+    total = sum(len(getattr(served, m).state_dict())
+                for m in ("note_model", "duration_model"))
+    text = BENCH_SENTENCES[0]
+    got, want = served.generate(text), direct.generate(text)
+    if equal != total or got != want:
+        raise AssertionError(f"served melody differs from the trained one: "
+                             f"{equal}/{total} tensors, {got} != {want}")
+    return {"tensors_equal": equal, "text": text, "notes": got[1],
+            "durations": got[2], "wall_s": time.time() - t0}
+
+
+def phase_seq_train(device, f32_row: dict) -> dict:
+    """Phase 15: the eight train.seq families (15a), --bf16 (15b), the
+    exported melody served (15c)."""
+    import torch
+    from music_generation_tpu_torch.ops import maximum_path
+    from music_generation_tpu_torch.train import seq
+    start = time.time()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rows = {"families": []}
+    maximum_path.kernel_launches = 0
+    for fam in seq.FAMILIES:
+        rows["families"].append(seq_family_run(device, fam))
+        r = rows["families"][-1]
+        log(f"seq phase: {fam}: {r['parameters']:,} parameters, first loss "
+            f"card vs CPU {r['first_loss_rel']:.3e} ({r['cpu_twin']}), warm "
+            f"{r['ms_per_step']:.1f} ms per step, peak "
+            f"{r['peak_memory_bytes'] / 2 ** 30:.2f} GiB, "
+            f"{r['launches_per_step']} launches per step, loss "
+            f"{r['losses'][0]:.4f} -> {r['losses'][-1]:.4f} after "
+            f"{r['steps_to_fall']} steps")
+        torch.cuda.empty_cache()
+    if maximum_path.kernel_launches:
+        raise AssertionError("a train.seq family launched MAS")
+    rows["bf16"] = bf16_train_run(device, f32_row)
+    b = rows["bf16"]
+    log(f"seq phase: --bf16 --durations mas: warm {b['ms_per_step']:.1f} ms "
+        f"per step (float32 in phase 8: {b['f32_ms_per_step_phase8']:.1f}), "
+        f"peak {b['peak_memory_bytes'] / 2 ** 30:.2f} GiB (float32 "
+        f"{b['f32_peak_memory_bytes_phase8'] / 2 ** 30:.2f}), loss terms "
+        f"within {b['loss_rel_max']:.4f} of float32, masters {b['masters']}"
+        f", MAS {b['mas_launches']} launches, kernel == plain on the bf16 "
+        f"step's {b['neg_cent_dtype']} neg_cent")
+    torch.cuda.empty_cache()
+    rows["export"] = melody_export_served(device)
+    rows["phase_s"] = time.time() - start
+    log("seq phase: " + json.dumps(rows, ensure_ascii=False))
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3161,17 +3470,21 @@ def main() -> int:
     v1_model = phase_v1_model(device)
     torch.cuda.empty_cache()
     corpus_v1 = phase_corpus_and_v1(device)
+    torch.cuda.empty_cache()
+    seq_train = phase_seq_train(device, train)
     record = earlier.pop("record")
     record["launches"] = (train["mas_launches"]
                           + f0_variants["train"]["mas_launches"]
                           + v1_model["train_plain"]["mas_launches"]
-                          + corpus_v1["corpus"]["mas_launches"])
+                          + corpus_v1["corpus"]["mas_launches"]
+                          + seq_train["bf16"]["mas_launches"])
     log(json.dumps(earlier | {"train": train, "checkpoint": checkpoint,
                               "decoders": decoders,
                               "f0_variants": f0_variants,
                               "served_surface": surface,
                               "v1_model": v1_model,
-                              "corpus_and_v1": corpus_v1},
+                              "corpus_and_v1": corpus_v1,
+                              "seq_train": seq_train},
                    ensure_ascii=False))
     log(json.dumps({"kernels": [record]}))
     log(json.dumps({"ok": True, "device": {

@@ -202,17 +202,21 @@ def gpt2_state_dict_from_flax(params: dict, cfg: GPT2Config) -> dict:
     return state_dict_from_flax(params, model, _suffixed_rename)
 
 
-def sdp_state_dict_from_flax(params: dict, cfg: SDPDurationConfig) -> dict:
-    """state_dict for the port's SDPDurationModel(cfg). The tree flax
-    builds with init(method=infer_duration) holds exactly what inference
-    runs; a tree from the training __call__ also holds the duration
-    predictor's flow 0 and posterior (dp/flow_0, dp/post_*), which only
-    the NLL direction uses: those subtrees, and only those, are dropped."""
+def sdp_state_dict_from_flax(params: dict, cfg: SDPDurationConfig,
+                             nll: bool = False) -> dict:
+    """state_dict for the port's SDPDurationModel(cfg, nll). The tree
+    flax builds with init(method=infer_duration) holds exactly what
+    inference runs; a tree from the training __call__ also holds the
+    duration predictor's flow 0 and posterior (dp/flow_0, dp/post_*),
+    which only the NLL direction uses. With ``nll`` every leaf is carried
+    (the training model); without it those subtrees, and only those, are
+    dropped."""
     params = dict(params.get("params", params))
-    params["dp"] = {k: v for k, v in params["dp"].items()
-                    if k != "flow_0" and not k.startswith("post_")}
+    if not nll:
+        params["dp"] = {k: v for k, v in params["dp"].items()
+                        if k != "flow_0" and not k.startswith("post_")}
     with torch.device("meta"):
-        model = SDPDurationModel(cfg)
+        model = SDPDurationModel(cfg, nll=nll)
     return state_dict_from_flax(params, model)
 
 

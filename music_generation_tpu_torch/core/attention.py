@@ -79,13 +79,16 @@ class RelativeMultiHeadAttention(nn.Module):
         k = heads(conv_ntc(self.k, x))
         v = heads(conv_ntc(self.v, x))
         scores = q @ k.transpose(-1, -2)
-        rel_k = _window_embeddings(self.emb_rel_k, t, self.window_size)
+        # the relative embeddings take the activations' dtype (_at_dtype)
+        rel_k = _window_embeddings(self.emb_rel_k.to(q.dtype), t,
+                                   self.window_size)
         scores = scores + _relative_to_absolute(q @ rel_k.T)
         scores = scores.masked_fill(attn_mask == 0, MASK_VALUE)
         p = torch.softmax(scores, dim=-1)
         p = dropout(p, self.dropout_rate, deterministic, generator)
         out = p @ v
-        rel_v = _window_embeddings(self.emb_rel_v, t, self.window_size)
+        rel_v = _window_embeddings(self.emb_rel_v.to(p.dtype), t,
+                                   self.window_size)
         out = out + _absolute_to_relative(p) @ rel_v
         return conv_ntc(self.out, out.transpose(1, 2).reshape(b, t, c))
 

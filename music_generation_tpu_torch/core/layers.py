@@ -43,10 +43,12 @@ def same_pad(kernel_size: int, dilation: int = 1) -> tuple[int, int]:
 
 def _at_dtype(weight: torch.Tensor, bias: Optional[torch.Tensor],
               dtype: torch.dtype):
-    """A conv's effective weight and bias in its input's dtype. Parameters
+    """A layer's effective weight and bias in its input's dtype. Parameters
     stay float32 and are cast at use, as flax's Conv1d(dtype=None) casts
     them (VISinger's decoder_bf16 feeds the decoder bfloat16); the weight
-    norm is taken in float32 before the cast. No-op for float32 input."""
+    norm is taken in float32 before the cast. Under the trainer's bf16_run
+    the parameters come in bfloat16, and a float32 input casts them up:
+    flax's promotion of (input, kernel). No-op when the dtypes agree."""
     if weight.dtype == dtype:
         return weight, bias
     return weight.to(dtype), None if bias is None else bias.to(dtype)
@@ -93,15 +95,24 @@ class Conv1d(nn.Module):
             x = F.pad(x, (left, right))
             left = 0
         w, b = _at_dtype(self.effective_weight(), self.bias, x.dtype)
-        return F.conv1d(x, w, b, stride=self.stride, padding=left,
-                        dilation=self.dilation, groups=self.groups)
+        kw = {"stride": self.stride, "padding": left,
+              "dilation": self.dilation, "groups": self.groups}
+        if x.dtype == torch.bfloat16 and x.device.type == "cpu":
+            # torch's CPU bfloat16 conv now and then returns NaN weight
+            # gradients when the input is shorter than the padding (the
+            # tiny discriminator's 2-sample input to its 41-tap layer):
+            # the same bfloat16 operands, accumulated in float32, rounded
+            return F.conv1d(x.float(), w.float(),
+                            None if b is None else b.float(), **kw).to(x.dtype)
+        return F.conv1d(x, w, b, **kw)
 
 
 def conv_ntc(conv: Conv1d, x: torch.Tensor) -> torch.Tensor:
     """Apply a Conv1d to channels-last [B, T, C]; a 1x1 conv is a linear."""
     w = conv.effective_weight()
     if w.shape[-1] == 1 and conv.stride == 1 and conv.groups == 1:
-        return F.linear(x, w[..., 0], conv.bias)
+        w, b = _at_dtype(w, conv.bias, x.dtype)
+        return F.linear(x, w[..., 0], b)
     return conv(x.transpose(1, 2)).transpose(1, 2)
 
 
@@ -137,10 +148,17 @@ class ConvTranspose1d(nn.Module):
                                   padding=self.padding)
 
 
-def LayerNorm1d(channels: int) -> nn.LayerNorm:
+class LayerNorm1d(nn.LayerNorm):
     """LayerNorm over the channel axis of [B, T, C] (eps 1e-5, as the JAX
-    package's LayerNorm1d; flax's own default is 1e-6)."""
-    return nn.LayerNorm(channels, eps=1e-5)
+    package's LayerNorm1d; flax's own default is 1e-6); its scale and bias
+    take the input's dtype (_at_dtype)."""
+
+    def __init__(self, channels: int):
+        super().__init__(channels, eps=1e-5)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w, b = _at_dtype(self.weight, self.bias, x.dtype)
+        return F.layer_norm(x, self.normalized_shape, w, b, self.eps)
 
 
 class FFN(nn.Module):
@@ -166,14 +184,16 @@ class FFN(nn.Module):
 
 
 class DDSConv(nn.Module):
-    """Dilated depth-separable conv stack on [B, T, C] (the inference
-    direction of the JAX package's DDSConv: dropout is not applied).
-    Layer i: depthwise conv with dilation kernel_size**i, LayerNorm, GELU,
-    pointwise conv, LayerNorm, GELU, residual. GELU is the tanh
-    approximation, jax.nn.gelu's default."""
+    """Dilated depth-separable conv stack on [B, T, C] (the JAX package's
+    DDSConv). Layer i: depthwise conv with dilation kernel_size**i,
+    LayerNorm, GELU, pointwise conv, LayerNorm, GELU, dropout at
+    ``dropout_rate`` (only with ``deterministic`` False), residual. GELU is
+    the tanh approximation, jax.nn.gelu's default."""
 
-    def __init__(self, channels: int, kernel_size: int, n_layers: int):
+    def __init__(self, channels: int, kernel_size: int, n_layers: int,
+                 dropout_rate: float = 0.0):
         super().__init__()
+        self.dropout_rate = dropout_rate
         self.sep = nn.ModuleList(
             Conv1d(channels, channels, kernel_size, dilation=kernel_size ** i,
                    groups=channels) for i in range(n_layers))
@@ -185,12 +205,13 @@ class DDSConv(nn.Module):
                                    for _ in range(n_layers))
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor,
-                g: Optional[torch.Tensor] = None) -> torch.Tensor:
+                g: Optional[torch.Tensor] = None, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if g is not None:
             x = x + g
         for sep, norm1, pw, norm2 in zip(self.sep, self.norm1, self.pw,
                                          self.norm2):
             y = F.gelu(norm1(conv_ntc(sep, x * mask)), approximate="tanh")
             y = F.gelu(norm2(conv_ntc(pw, y)), approximate="tanh")
-            x = x + y
+            x = x + dropout(y, self.dropout_rate, deterministic, generator)
         return x * mask

@@ -1,12 +1,15 @@
 """Melody transformer (lyric -> note enc-dec) and the duration models.
 
-Twin of MelodyTransformer (prev_mode="reference"), MSEDurationModel and
-SDPDurationModel (inference) in
+Twin of MelodyTransformer, MSEDurationModel and SDPDurationModel in
 music_generation_tpu/models/melody/transformer.py: the "annotated
 transformer" with pre-norm sublayers, a final LayerNorm, sinusoidal
-positions and emb * sqrt(d), plus the cross-sentence ``dotattention``
-memory; the SDP variant's post-norm encoder with learned positions feeding
-the stochastic duration predictor. LayerNorms use flax's default eps, 1e-6.
+positions and emb * sqrt(d), plus the cross-sentence memory (the
+reference's ``dotattention``, or the concatenated one of
+``prev_mode="concat"``); the SDP variant's post-norm encoder with learned
+positions feeding the stochastic duration predictor. LayerNorms use flax's
+default eps, 1e-6. Every forward takes ``deterministic`` (default True:
+no dropout) and the ``generator`` its dropout masks are drawn from, where
+the JAX modules take a dropout rng.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...core.layers import dropout
 from ..duration import StochasticDurationPredictor
 
 MASK_VALUE = -1e9
@@ -34,7 +38,14 @@ class MelodyConfig:
     d_model: int = 512
     d_ff: int = 2048
     n_heads: int = 8
+    dropout: float = 0.1
     max_len: int = 512
+    # the cross-sentence channel: "reference" (the decoder memory is the
+    # encoder rows mixed by the previous notes' attention over them) or
+    # "concat" (the decoder attends over [encoder rows | previous note
+    # embeddings]); the JAX package's MelodyConfig.prev_mode. The same
+    # parameters serve both.
+    prev_mode: str = "reference"
 
 
 def sinusoidal_position_encoding(max_len: int, d_model: int) -> np.ndarray:
@@ -53,18 +64,22 @@ def causal_mask(length: int, device=None) -> torch.Tensor:
 
 
 class TokenEmbedding(nn.Module):
-    def __init__(self, vocab: int, d_model: int, max_len: int = 5000):
+    def __init__(self, vocab: int, d_model: int, dropout_rate: float = 0.0,
+                 max_len: int = 5000):
         super().__init__()
         self.d_model = d_model
+        self.dropout_rate = dropout_rate
         self.lut = nn.Embedding(vocab, d_model)
         nn.init.normal_(self.lut.weight, std=vocab ** -0.5)
         self.register_buffer(
             "pe", torch.from_numpy(sinusoidal_position_encoding(
                 max_len, d_model)), persistent=False)
 
-    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+    def forward(self, ids: torch.Tensor, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         x = self.lut(ids) * math.sqrt(self.d_model)
-        return x + self.pe[None, : x.shape[1]]
+        return dropout(x + self.pe[None, : x.shape[1]], self.dropout_rate,
+                       deterministic, generator)
 
 
 def _dense(d_in: int, d_out: int) -> nn.Linear:
@@ -75,13 +90,17 @@ def _dense(d_in: int, d_out: int) -> nn.Linear:
 
 
 class MHA(nn.Module):
-    def __init__(self, d_model: int, n_heads: int):
+    """Multi-head attention; dropout on the attention probabilities."""
+
+    def __init__(self, d_model: int, n_heads: int, dropout_rate: float = 0.0):
         super().__init__()
         self.n_heads = n_heads
+        self.dropout_rate = dropout_rate
         self.q, self.k, self.v = (_dense(d_model, d_model) for _ in range(3))
         self.out = _dense(d_model, d_model)
 
-    def forward(self, q, k, v, mask=None):
+    def forward(self, q, k, v, mask=None, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
         b, d = q.shape[0], q.shape[-1]
         h, d_k = self.n_heads, d // self.n_heads
 
@@ -92,67 +111,90 @@ class MHA(nn.Module):
         scores = Q @ K.transpose(-1, -2) / math.sqrt(d_k)
         if mask is not None:
             scores = scores.masked_fill(mask == 0, MASK_VALUE)
-        out = torch.softmax(scores, dim=-1) @ V
+        p = dropout(torch.softmax(scores, dim=-1), self.dropout_rate,
+                    deterministic, generator)
+        out = p @ V
         return self.out(out.transpose(1, 2).reshape(b, q.shape[1], d))
 
 
 class FeedForward(nn.Module):
-    def __init__(self, d_model: int, d_ff: int):
+    def __init__(self, d_model: int, d_ff: int, dropout_rate: float = 0.0):
         super().__init__()
+        self.dropout_rate = dropout_rate
         self.fc1 = _dense(d_model, d_ff)
         self.fc2 = _dense(d_ff, d_model)
 
-    def forward(self, x):
-        return self.fc2(torch.relu(self.fc1(x)))
+    def forward(self, x, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
+        h = dropout(torch.relu(self.fc1(x)), self.dropout_rate,
+                    deterministic, generator)
+        return self.fc2(h)
 
 
 class PreNormBlock(nn.Module):
-    """x + sublayer(LN(x)) — the annotated-transformer sublayer."""
+    """x + dropout(sublayer(LN(x))) — the annotated-transformer sublayer
+    (``residual``; ``run`` calls the sublayer on the normed input)."""
 
-    def __init__(self, d_model: int, sublayer: nn.Module):
+    def __init__(self, d_model: int, sublayer: nn.Module,
+                 dropout_rate: float = 0.0):
         super().__init__()
+        self.dropout_rate = dropout_rate
         self.norm = nn.LayerNorm(d_model, eps=LN_EPS)
         self.sublayer = sublayer
+
+    def residual(self, x, run, deterministic: bool = True,
+                 generator: Optional[torch.Generator] = None):
+        return x + dropout(run(self.norm(x)), self.dropout_rate,
+                           deterministic, generator)
 
 
 class MelodyEncoder(nn.Module):
     def __init__(self, cfg: MelodyConfig):
         super().__init__()
-        d = cfg.d_model
+        d, r = cfg.d_model, cfg.dropout
         self.attn_res = nn.ModuleList(
-            PreNormBlock(d, MHA(d, cfg.n_heads)) for _ in range(cfg.n_layers))
+            PreNormBlock(d, MHA(d, cfg.n_heads, r), r)
+            for _ in range(cfg.n_layers))
         self.ff_res = nn.ModuleList(
-            PreNormBlock(d, FeedForward(d, cfg.d_ff))
+            PreNormBlock(d, FeedForward(d, cfg.d_ff, r), r)
             for _ in range(cfg.n_layers))
         self.final_norm = nn.LayerNorm(d, eps=LN_EPS)
 
-    def forward(self, x, src_mask):
+    def forward(self, x, src_mask, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
+        kw = {"deterministic": deterministic, "generator": generator}
         for attn, ff in zip(self.attn_res, self.ff_res):
-            h = attn.norm(x)
-            x = x + attn.sublayer(h, h, h, src_mask)
-            x = x + ff.sublayer(ff.norm(x))
+            x = attn.residual(
+                x, lambda h: attn.sublayer(h, h, h, src_mask, **kw), **kw)
+            x = ff.residual(x, lambda h: ff.sublayer(h, **kw), **kw)
         return self.final_norm(x)
 
 
 class MelodyDecoder(nn.Module):
     def __init__(self, cfg: MelodyConfig):
         super().__init__()
-        d = cfg.d_model
+        d, r = cfg.d_model, cfg.dropout
         self.self_res = nn.ModuleList(
-            PreNormBlock(d, MHA(d, cfg.n_heads)) for _ in range(cfg.n_layers))
+            PreNormBlock(d, MHA(d, cfg.n_heads, r), r)
+            for _ in range(cfg.n_layers))
         self.cross_res = nn.ModuleList(
-            PreNormBlock(d, MHA(d, cfg.n_heads)) for _ in range(cfg.n_layers))
+            PreNormBlock(d, MHA(d, cfg.n_heads, r), r)
+            for _ in range(cfg.n_layers))
         self.ffn_res = nn.ModuleList(
-            PreNormBlock(d, FeedForward(d, cfg.d_ff))
+            PreNormBlock(d, FeedForward(d, cfg.d_ff, r), r)
             for _ in range(cfg.n_layers))
         self.final_norm = nn.LayerNorm(d, eps=LN_EPS)
 
-    def forward(self, x, memory, src_mask, tgt_mask):
+    def forward(self, x, memory, src_mask, tgt_mask,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
+        kw = {"deterministic": deterministic, "generator": generator}
         for sa, ca, ff in zip(self.self_res, self.cross_res, self.ffn_res):
-            h = sa.norm(x)
-            x = x + sa.sublayer(h, h, h, tgt_mask)
-            x = x + ca.sublayer(ca.norm(x), memory, memory, src_mask)
-            x = x + ff.sublayer(ff.norm(x))
+            x = sa.residual(
+                x, lambda h: sa.sublayer(h, h, h, tgt_mask, **kw), **kw)
+            x = ca.residual(x, lambda h: ca.sublayer(h, memory, memory,
+                                                     src_mask, **kw), **kw)
+            x = ff.residual(x, lambda h: ff.sublayer(h, **kw), **kw)
         return self.final_norm(x)
 
 
@@ -162,8 +204,10 @@ class MelodyTransformer(nn.Module):
     def __init__(self, cfg: MelodyConfig):
         super().__init__()
         self.cfg = cfg
-        self.src_embed = TokenEmbedding(cfg.src_vocab, cfg.d_model)
-        self.tgt_embed = TokenEmbedding(cfg.tgt_vocab, cfg.d_model)
+        self.src_embed = TokenEmbedding(cfg.src_vocab, cfg.d_model,
+                                        cfg.dropout)
+        self.tgt_embed = TokenEmbedding(cfg.tgt_vocab, cfg.d_model,
+                                        cfg.dropout)
         self.encoder = MelodyEncoder(cfg)
         self.decoder = MelodyDecoder(cfg)
         self.generator = _dense(cfg.d_model, cfg.tgt_vocab)
@@ -172,36 +216,60 @@ class MelodyTransformer(nn.Module):
         with torch.no_grad():
             self.generator.bias[:3] = -10.0
 
-    def encode(self, src, src_mask):
-        return self.encoder(self.src_embed(src), src_mask)
+    def encode(self, src, src_mask, deterministic: bool = True,
+               generator: Optional[torch.Generator] = None):
+        return self.encoder(self.src_embed(src, deterministic, generator),
+                            src_mask, deterministic, generator)
 
-    def dot_attention_memory(self, src, src_mask, previous_ids):
+    def dot_attention_memory(self, src, src_mask, previous_ids,
+                             deterministic: bool = True,
+                             generator: Optional[torch.Generator] = None):
         """The previous sentence's note embeddings attend over the encoder
         outputs; the mixtures replace the decoder memory
         (transformer_melody/model.py:349-362 of the reference)."""
-        memory = self.encode(src, src_mask)
-        prev = self.tgt_embed(previous_ids)
+        memory = self.encode(src, src_mask, deterministic, generator)
+        prev = self.tgt_embed(previous_ids, deterministic, generator)
         interact = prev @ memory.transpose(1, 2)
         interact = interact + (src_mask[:, 0].to(torch.int32) - 1) * 1e-9
         return torch.softmax(interact, dim=-1) @ memory
 
-    def prev_memory(self, src, src_mask, previous_ids, prev_active: bool):
+    def prev_memory(self, src, src_mask, previous_ids, prev_active=True,
+                    deterministic: bool = True,
+                    generator: Optional[torch.Generator] = None):
         """(memory, memory_mask) for the decode; the previous sentence
-        conditions it only when ``prev_active``."""
+        conditions it only when ``prev_active`` (a bool, or a 0/1 tensor
+        in the concat mode). ``cfg.prev_mode`` "concat" appends the
+        previous note embeddings to the encoder rows, their mask
+        (non-pad ids) gated by ``prev_active``."""
+        if self.cfg.prev_mode == "concat":
+            enc = self.encode(src, src_mask, deterministic, generator)
+            prev = self.tgt_embed(previous_ids, deterministic, generator)
+            prev_mask = (previous_ids != 0).to(src_mask.dtype) * prev_active
+            return (torch.cat([enc, prev], dim=1),
+                    torch.cat([src_mask, prev_mask[:, None, None, :]],
+                              dim=-1))
         if prev_active:
-            return self.dot_attention_memory(src, src_mask,
-                                             previous_ids), src_mask
-        return self.encode(src, src_mask), src_mask
+            return self.dot_attention_memory(src, src_mask, previous_ids,
+                                             deterministic,
+                                             generator), src_mask
+        return self.encode(src, src_mask, deterministic, generator), src_mask
 
-    def decode(self, memory, src_mask, tgt, tgt_mask):
-        return self.decoder(self.tgt_embed(tgt), memory, src_mask, tgt_mask)
+    def decode(self, memory, src_mask, tgt, tgt_mask,
+               deterministic: bool = True,
+               generator: Optional[torch.Generator] = None):
+        return self.decoder(self.tgt_embed(tgt, deterministic, generator),
+                            memory, src_mask, tgt_mask, deterministic,
+                            generator)
 
     def logits(self, decoder_out):
         return F.log_softmax(self.generator(decoder_out), dim=-1)
 
-    def forward(self, src, tgt, src_mask, tgt_mask):
-        memory = self.encode(src, src_mask)
-        return self.logits(self.decode(memory, src_mask, tgt, tgt_mask))
+    def forward(self, src, tgt, src_mask, tgt_mask,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
+        memory = self.encode(src, src_mask, deterministic, generator)
+        return self.logits(self.decode(memory, src_mask, tgt, tgt_mask,
+                                       deterministic, generator))
 
 
 class MSEDurationModel(nn.Module):
@@ -209,7 +277,8 @@ class MSEDurationModel(nn.Module):
 
     def __init__(self, cfg: MelodyConfig):
         super().__init__()
-        self.src_embed = TokenEmbedding(cfg.src_vocab, cfg.d_model)
+        self.src_embed = TokenEmbedding(cfg.src_vocab, cfg.d_model,
+                                        cfg.dropout)
         self.encoder = MelodyEncoder(cfg)
         self.decoder = _dense(cfg.d_model, cfg.d_model)
         self.generator = _dense(cfg.d_model, 1)
@@ -218,8 +287,10 @@ class MSEDurationModel(nn.Module):
         # notes instead of ~0 s phones with no frames
         nn.init.constant_(self.generator.bias, math.log1p(30.0))
 
-    def forward(self, src, src_mask):
-        x = self.encoder(self.src_embed(src), src_mask)
+    def forward(self, src, src_mask, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
+        x = self.encoder(self.src_embed(src, deterministic, generator),
+                         src_mask, deterministic, generator)
         x = F.leaky_relu(self.decoder(x), 0.2)
         return self.generator(x)[..., 0]  # [B, T] log-durations
 
@@ -231,6 +302,7 @@ class SDPDurationConfig:
     n_layers: int = 6
     n_heads: int = 8
     pf_dim: int = 512
+    dropout: float = 0.1
     max_len: int = 100
 
 
@@ -240,40 +312,48 @@ class PostNormEncoder(nn.Module):
 
     def __init__(self, cfg: SDPDurationConfig):
         super().__init__()
-        d = cfg.hidden_dim
+        d, r = cfg.hidden_dim, cfg.dropout
+        self.dropout_rate = r
         self.scale = math.sqrt(d)
         self.tok = nn.Embedding(cfg.src_vocab, d)
         self.pos = nn.Embedding(cfg.max_len, d)
         for emb in (self.tok, self.pos):
             nn.init.normal_(emb.weight, std=d ** -0.5)
-        self.attn = nn.ModuleList(MHA(d, cfg.n_heads)
+        self.attn = nn.ModuleList(MHA(d, cfg.n_heads, r)
                                   for _ in range(cfg.n_layers))
         self.norm1 = nn.ModuleList(nn.LayerNorm(d, eps=LN_EPS)
                                    for _ in range(cfg.n_layers))
-        self.ff = nn.ModuleList(FeedForward(d, cfg.pf_dim)
+        self.ff = nn.ModuleList(FeedForward(d, cfg.pf_dim, r)
                                 for _ in range(cfg.n_layers))
         self.norm2 = nn.ModuleList(nn.LayerNorm(d, eps=LN_EPS)
                                    for _ in range(cfg.n_layers))
 
-    def forward(self, src, src_mask):
+    def forward(self, src, src_mask, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
+        kw = {"deterministic": deterministic, "generator": generator}
+        r = self.dropout_rate
         pos = torch.arange(src.shape[1], device=src.device)[None, :]
-        x = self.tok(src) * self.scale + self.pos(pos)
+        x = dropout(self.tok(src) * self.scale + self.pos(pos), r, **kw)
         for attn, norm1, ff, norm2 in zip(self.attn, self.norm1, self.ff,
                                           self.norm2):
-            x = norm1(x + attn(x, x, x, src_mask))
-            x = norm2(x + ff(x))
+            x = norm1(x + dropout(attn(x, x, x, src_mask, **kw), r, **kw))
+            x = norm2(x + dropout(ff(x, **kw), r, **kw))
         return x
 
 
 class SDPDurationModel(nn.Module):
-    """Lyric2Duration, inference: the post-norm encoder and the stochastic
-    duration predictor's reverse direction."""
+    """Lyric2Duration: the post-norm encoder and the stochastic duration
+    predictor. ``nll`` builds the predictor's training half too (flow 0
+    and the posterior), which ``forward`` runs; inference
+    (``infer_duration``) needs neither."""
 
-    def __init__(self, cfg: SDPDurationConfig):
+    def __init__(self, cfg: SDPDurationConfig, nll: bool = False):
         super().__init__()
         self.cfg = cfg
         self.encoder = PostNormEncoder(cfg)
-        self.dp = StochasticDurationPredictor(cfg.hidden_dim, 3)
+        # the JAX SDPDurationModel's constant DDSConv dropout, 0.5
+        self.dp = StochasticDurationPredictor(cfg.hidden_dim, 3, 0.5,
+                                              nll=nll)
 
     def infer_duration(self, src: torch.Tensor, noise_scale: float = 1.0,
                        noise: Optional[torch.Tensor] = None,
@@ -290,3 +370,20 @@ class SDPDurationModel(nn.Module):
                                 device=src.device, dtype=h.dtype)
         logw = self.dp(h, fmask, noise * noise_scale)
         return torch.exp(logw) * mask.to(h.dtype)
+
+    def forward(self, src: torch.Tensor, durations: torch.Tensor,
+                deterministic: bool = False,
+                generator: Optional[torch.Generator] = None,
+                e_q: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The flow NLL [B] of ``durations`` [B, T] (centiseconds) given
+        src [B, T], each item's divided by the batch's count of unpadded
+        positions. Dropout is on by default, as in the JAX __call__.
+        ``e_q`` [B, T, 2] is the posterior noise, else drawn from
+        ``generator``."""
+        mask = src != 0
+        h = self.encoder(src, mask[:, None, None, :].to(torch.int32),
+                         deterministic, generator)
+        fmask = mask[..., None].to(h.dtype)
+        nll = self.dp.nll(h, fmask, durations[..., None], deterministic,
+                          generator, e_q)
+        return nll / torch.sum(fmask)

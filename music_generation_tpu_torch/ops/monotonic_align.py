@@ -154,8 +154,10 @@ def mas_neg_cent(z_p, m_p, logs_p, x_mask, y_mask, logs_clamp: float = 7.0):
 def mas_duration_targets(z_p, m_p, logs_p, x_mask, y_mask,
                          logs_clamp: float = 7.0) -> torch.Tensor:
     """Monotonic-alignment-search duration targets (frames per phone):
-    int32 [B, T]; see mas_neg_cent for the inputs."""
+    int32 [B, T]; see mas_neg_cent for the inputs. The score and mask go
+    to maximum_path as float32 whatever their dtype (a bf16_run step's),
+    as the JAX package casts before its kernel."""
     neg_cent, attn_mask = mas_neg_cent(z_p, m_p, logs_p, x_mask, y_mask,
                                        logs_clamp)
-    path = maximum_path(neg_cent, attn_mask)
+    path = maximum_path(neg_cent.float(), attn_mask.float())
     return path.sum(dim=1).to(torch.int32)

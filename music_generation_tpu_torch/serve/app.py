@@ -505,7 +505,12 @@ def configure(argv=None):
     parser.add_argument("--device", default="cuda",
                         help="torch device the models run on (default cuda; "
                              "raises when no GPU is present)")
+    parser.add_argument("--mesh", default=None, metavar="DATAxMODEL",
+                        help="multi-device SVS inference mesh: not yet "
+                             "ported")
     args = parser.parse_args(argv)
+    if args.mesh is not None:
+        parser.error("--mesh is not yet ported (ROADMAP.md Queue 1 item 10)")
     if args.nsf and args.decoder != "hifigan":
         # NSF excitation is wired into the HiFi-GAN decoder only
         parser.error("--nsf requires --decoder hifigan")

@@ -4,7 +4,7 @@ Usage:
   python -m music_generation_tpu_torch.train --steps 1000 --ckpt-dir ./ckpts \
       [--data-dir NPY_DIR | --packed PREFIX] [--log-images]
       [--tiny] [--durations mas] [--decoder hifigan|istft|mb_istft]
-      [--nsf] [--f0-residual] [--device cpu]
+      [--nsf] [--f0-residual] [--bf16] [--device cpu]
 
 Twin of ``python -m music_generation_tpu.train`` on one device, with
 random-init weights. Batches come from a preprocessed corpus,
@@ -18,12 +18,13 @@ len(dataset) // batch-size steps; else synthetic batches
 the debug images of each logged step under <ckpt-dir>/logs/images.
 Runs on ``cuda`` unless given ``--device``; it never falls back to the CPU.
 ``--durations mas`` aligns each step with monotonic alignment search, which
-on a CUDA device launches the hand-written kernel. Flags of the JAX CLI
-that are not ported yet (--bf16, --multihost, --coordinator, --nprocs,
---proc-id, --n-model > 1) exit with an error that names them and their
-ROADMAP.md item. ``tools/torch_export_trained_svs.py`` turns a
-step_<n>.pt into the per-singer files ``serve.app --checkpoint-dir``
-serves.
+on a CUDA device launches the hand-written kernel. ``--bf16`` computes
+both networks from bfloat16 casts of their float32 masters
+(TrainConfig.bf16_run). Flags of the JAX CLI that are not ported yet
+(--multihost, --coordinator, --nprocs, --proc-id, --n-model > 1) exit with
+an error that names them and their ROADMAP.md item.
+``tools/torch_export_trained_svs.py`` turns a step_<n>.pt into the
+per-singer files ``serve.app --checkpoint-dir`` serves.
 """
 
 import argparse
@@ -88,10 +89,11 @@ def _parser() -> argparse.ArgumentParser:
                    help="residual F0 head: the zero-initialised predictor "
                         "output is a deviation added to the score note's "
                         "log-F0 (SVSConfig.f0_residual)")
+    p.add_argument("--bf16", action="store_true",
+                   help="mixed precision: bfloat16 compute from float32 "
+                        "masters (TrainConfig.bf16_run)")
     # flags of the JAX CLI that the port does not implement yet
-    for flag in ("bf16", "multihost"):
-        p.add_argument(f"--{flag}", action="store_true",
-                       help="not yet ported")
+    p.add_argument("--multihost", action="store_true", help="not yet ported")
     p.add_argument("--coordinator", default=None, help="not yet ported")
     p.add_argument("--nprocs", type=int, default=None, help="not yet ported")
     p.add_argument("--proc-id", type=int, default=None,
@@ -102,8 +104,7 @@ def _parser() -> argparse.ArgumentParser:
 
 
 # unported flag -> its ROADMAP.md Queue 1 item
-UNPORTED = {"bf16": 7, "multihost": 10, "coordinator": 10, "nprocs": 10,
-            "proc_id": 10}
+UNPORTED = {"multihost": 10, "coordinator": 10, "nprocs": 10, "proc_id": 10}
 
 
 def main(argv=None):
@@ -139,7 +140,7 @@ def main(argv=None):
                        use_mas=args.durations == "mas",
                        disc_lr_scale=args.disc_lr_scale,
                        warmup_steps=args.warmup_steps,
-                       log_images=args.log_images)
+                       log_images=args.log_images, bf16_run=args.bf16)
     for field, val in (("c_kl_rev", args.c_kl_rev), ("c_adv", args.c_adv),
                        ("c_fm", args.c_fm), ("c_mel", args.c_mel),
                        ("c_stft", args.c_stft), ("c_energy", args.c_energy),

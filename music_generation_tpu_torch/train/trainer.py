@@ -13,6 +13,7 @@ lowest ``loss_mel`` (``best.json``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import glob
 import json
 import math
@@ -33,10 +34,12 @@ from . import losses
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """The JAX package's TrainConfig, field for field (its comments give
-    each default's reason). ``bf16_run`` is not ported yet and must stay
-    False. ``log_images`` adds the first item's mel and spectrogram
-    predictions, spectrogram target and phone-to-frame alignment to each
-    step's metrics, as device tensors (MetricsWriter renders them)."""
+    each default's reason). ``bf16_run`` computes the generator and the
+    discriminator from bfloat16 casts of their float32 masters and of the
+    batch (``bf16_call``). ``log_images`` adds the first item's mel and
+    spectrogram predictions, spectrogram target and phone-to-frame
+    alignment to each step's metrics, as device tensors (MetricsWriter
+    renders them)."""
     learning_rate: float = 2e-4
     betas: tuple = (0.8, 0.99)
     eps: float = 1e-9
@@ -62,6 +65,16 @@ class TrainConfig:
     disc_input_noise: float = 0.0
     disc_loss_floor: float = 0.0
     log_images: bool = False
+
+
+def clip_by_global_norm(grads: list, max_norm: float) -> list:
+    """optax.clip_by_global_norm: every gradient scaled by max_norm / norm
+    when the global norm is >= max_norm (not clip_grad_norm_'s max_norm /
+    (norm + 1e-6)), with no host sync."""
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    scale = torch.where(norm < max_norm, torch.ones_like(norm),
+                        max_norm / norm)
+    return torch._foreach_mul(grads, scale)
 
 
 class Optimizer:
@@ -122,11 +135,7 @@ class Optimizer:
             if self.mini_step:
                 return
             grads = self.acc
-        norm = torch.linalg.vector_norm(
-            torch.stack(torch._foreach_norm(grads)))
-        scale = torch.where(norm < cfg.grad_clip_norm, torch.ones_like(norm),
-                            cfg.grad_clip_norm / norm)
-        grads = torch._foreach_mul(grads, scale)
+        grads = clip_by_global_norm(grads, cfg.grad_clip_norm)
         torch._foreach_clamp_min_(grads, -cfg.grad_clip)
         torch._foreach_clamp_max_(grads, cfg.grad_clip)
         if self.acc is not None:
@@ -173,9 +182,6 @@ def create_states(svs_cfg: SVSConfig, train_cfg: TrainConfig, device=None
     (the global torch RNG is left as it was), on ``device``: cuda unless
     the caller asks for another; no GPU raises (see device.py)."""
     device = resolve_device(device)
-    if train_cfg.bf16_run:
-        raise NotImplementedError("bf16_run is not yet ported (ROADMAP.md "
-                                  "Queue 1 item 7)")
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(train_cfg.seed)
         gen = VISinger(svs_cfg)
@@ -187,18 +193,51 @@ def create_states(svs_cfg: SVSConfig, train_cfg: TrainConfig, device=None
                                        lr_scale=train_cfg.disc_lr_scale)))
 
 
+def cast_floats(tree, src: torch.dtype, dst: torch.dtype):
+    """``tree`` (tensors in dicts, lists and tuples) with every ``src``
+    tensor cast to ``dst``; anything else as it was."""
+    if torch.is_tensor(tree):
+        return tree.to(dst) if tree.dtype == src else tree
+    if isinstance(tree, dict):
+        return {k: cast_floats(v, src, dst) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(cast_floats(v, src, dst) for v in tree)
+    return tree
+
+
+def bf16_call(module: nn.Module, *args, **kwargs):
+    """``module(*args, **kwargs)`` computed from bfloat16 casts of its
+    float32 parameters (the JAX trainer's bf16_run): the casts sit in the
+    autograd graph, so gradients reach the float32 masters as float32;
+    float32 outputs come back. The caller casts the inputs. Each layer
+    takes its input's dtype (core.layers._at_dtype), so where an input is
+    float32 the op runs in float32, as flax promotes a (float32, bfloat16)
+    pair."""
+    params = {n: p.to(torch.bfloat16) if p.dtype == torch.float32 else p
+              for n, p in module.named_parameters()}
+    out = torch.func.functional_call(module, params, args, kwargs)
+    return cast_floats(out, torch.bfloat16, torch.float32)
+
+
 def gen_forward(gen: VISinger, batch: dict, train_cfg: TrainConfig,
                 deterministic: bool = False,
                 generator: Optional[torch.Generator] = None, **draws) -> dict:
     """The training forward on a batch of tensors (``draws``: the noise,
     noise_rev and slice_u of VISinger.forward). The batch's log_f0 drives
-    the NSF source of an ``nsf`` generator."""
-    return gen(batch["phones"], batch["x_lengths"], batch["spec"],
-               batch["y_lengths"], batch["note_ids"], batch["note_durations"],
-               batch["f0_score"], batch["phone_durations"],
-               batch["shengdiao"], deterministic=deterministic,
-               use_mas=train_cfg.use_mas, log_f0=batch["log_f0"],
-               generator=generator, **draws)
+    the NSF source of an ``nsf`` generator. Under ``bf16_run`` the
+    batch's float32 tensors go in as bfloat16 (bf16_call); the draws stay
+    float32, as the JAX package's in-graph draws are."""
+    if train_cfg.bf16_run:
+        batch = cast_floats(batch, torch.float32, torch.bfloat16)
+        call = functools.partial(bf16_call, gen)
+    else:
+        call = gen
+    return call(batch["phones"], batch["x_lengths"], batch["spec"],
+                batch["y_lengths"], batch["note_ids"], batch["note_durations"],
+                batch["f0_score"], batch["phone_durations"],
+                batch["shengdiao"], deterministic=deterministic,
+                use_mas=train_cfg.use_mas, log_f0=batch["log_f0"],
+                generator=generator, **draws)
 
 
 def slice_real_audio(audio: torch.Tensor, ids_slice: torch.Tensor,
@@ -211,13 +250,17 @@ def disc_apply(disc: MultiPeriodDiscriminator, y_real, y_fake,
                train_cfg: TrainConfig,
                generator: Optional[torch.Generator] = None):
     """The discriminator on real and generated segments, with instance
-    noise on both when ``disc_input_noise`` > 0."""
+    noise on both when ``disc_input_noise`` > 0 (in bfloat16 under
+    ``bf16_run``, float32 out)."""
     s = train_cfg.disc_input_noise
     if s > 0.0:
         y_real = y_real + s * torch.randn(y_real.shape, generator=generator,
                                           device=y_real.device)
         y_fake = y_fake + s * torch.randn(y_fake.shape, generator=generator,
                                           device=y_fake.device)
+    if train_cfg.bf16_run:
+        return bf16_call(disc, y_real.to(torch.bfloat16),
+                         y_fake.to(torch.bfloat16))
     return disc(y_real, y_fake)
 
 

@@ -19,6 +19,7 @@ import contextlib
 import json
 import os
 import shutil
+import sys
 from unittest import mock
 
 import jax
@@ -397,6 +398,90 @@ def test_train_step_updates_both_and_dropout_is_seeded():
     assert not torch.equal(a, c) and not torch.equal(a, d)
 
 
+@contextlib.contextmanager
+def mas_inputs():
+    """Records the dtypes of what ops.maximum_path passes, unchanged, to
+    its plain version on the CPU (which still runs)."""
+    from music_generation_tpu_torch.ops import monotonic_align as t_ma
+    seen, plain = [], t_ma.maximum_path_torch
+
+    def spy(neg_cent, mask):
+        seen.append((neg_cent.dtype, mask.dtype))
+        return plain(neg_cent, mask)
+    with mock.patch.object(t_ma, "maximum_path_torch", spy):
+        yield seen
+
+
+def test_bf16_train_step_finite_and_close_to_f32():
+    """--bf16 (TrainConfig.bf16_run) as tests/test_train.py holds the JAX
+    trainer, here with MAS durations: from the same weights, batch and
+    generator seed every metric is finite and within 20 % of the float32
+    step's, the masters stay float32 and both networks moved, and MAS got
+    float32 inputs in both generator forwards."""
+    batch = _tensors(synthetic_batch(CFG, batch=B, t_phones=PHONES,
+                                     t_frames=FRAMES, seed=1))
+    metrics, states = {}, {}
+    for bf16 in (False, True):
+        tc = TrainConfig(use_mas=True, bf16_run=bf16)
+        gen_state, disc_state = create_states(CFG, tc, "cpu")
+        g0, d0 = _snapshot(gen_state.model), _snapshot(disc_state.model)
+        with mas_inputs() as seen:
+            metrics[bf16] = make_train_step(CFG, tc)(
+                gen_state, disc_state, batch,
+                torch.Generator().manual_seed(0))
+        states[bf16] = (gen_state, disc_state, g0, d0, seen)
+    for k, v in metrics[True].items():
+        got, want = float(v), float(metrics[False][k])
+        assert np.isfinite(got), k
+        assert abs(got - want) / (abs(want) + 1e-3) < 0.2, (k, want, got)
+    gen_state, disc_state, g0, d0, seen = states[True]
+    for module, before in ((gen_state.model, g0), (disc_state.model, d0)):
+        assert all(p.dtype == torch.float32 for p in module.parameters())
+        assert _moved(before, module)
+    assert seen == [(torch.float32, torch.float32)] * 2
+    # bf16 really ran: the two steps differ
+    assert any(float(metrics[True][k]) != float(metrics[False][k])
+               for k in metrics[True])
+
+
+def test_mas_casts_bf16_neg_cent_to_float32():
+    """A bfloat16 alignment score (mas_neg_cent on bfloat16 inputs) reaches
+    maximum_path as float32, and the durations are the plain version's on
+    that cast."""
+    from music_generation_tpu_torch.ops.monotonic_align import (
+        mas_duration_targets, mas_neg_cent, maximum_path_torch)
+    rng = np.random.RandomState(2)
+    z_p, m_p, logs_p = (t(rng.randn(B, n, 4).astype(np.float32))
+                        .to(torch.bfloat16) for n in (FRAMES, PHONES, PHONES))
+    x_mask = torch.ones(B, PHONES, 1, dtype=torch.bfloat16)
+    y_mask = torch.ones(B, FRAMES, 1, dtype=torch.bfloat16)
+    neg_cent, attn = mas_neg_cent(z_p, m_p, logs_p, x_mask, y_mask)
+    assert neg_cent.dtype == torch.bfloat16
+    with mas_inputs() as seen:
+        got = mas_duration_targets(z_p, m_p, logs_p, x_mask, y_mask)
+    assert seen == [(torch.float32, torch.float32)]
+    want = maximum_path_torch(neg_cent.float(), attn.float()).sum(dim=1)
+    assert torch.equal(got, want.to(torch.int32))
+    assert int(got.sum()) == B * FRAMES
+
+
+def test_cli_trains_bf16_with_mas_on_cpu(tmp_path, monkeypatch):
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+    ck = str(tmp_path / "ck")
+    plain = maximum_path.plain_calls
+    train_main(["--tiny", "--device", "cpu", "--bf16", "--durations", "mas",
+                "--ckpt-dir", ck, "--steps", "1", "--batch-size", "2",
+                "--warmup-steps", "0"])
+    assert maximum_path.plain_calls == plain + 2
+    saved = torch.load(os.path.join(ck, "step_1.pt"), weights_only=True)
+    assert all(v.dtype == torch.float32 for v in saved["gen"].values()
+               if v.is_floating_point())
+    with open(os.path.join(ck, "logs", "train_metrics.jsonl")) as fh:
+        row = json.loads(fh.readline())
+    assert np.isfinite(row["loss_gen"]) and row["loss_disc"] > 0
+    shutil.rmtree(ck)  # the full discriminator's step file, some 0.55 GB
+
+
 def test_checkpoint_round_trip_and_pruning(tmp_path):
     """A half-accumulated optimizer (one of two mini-steps taken) saved
     four times: the newest two and the best are kept, and a restore gives
@@ -458,8 +543,9 @@ def test_cli_trains_with_mas_on_cpu_and_resumes(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--bf16"], ["--nprocs", "2"], ["--proc-id", "0"], ["--multihost"],
-    ["--n-model", "2"], ["--bf16", "--packed", "x"], ["--coordinator", "x"]])
+    ["--proc-id", "1"], ["--nprocs", "2"], ["--proc-id", "0"],
+    ["--multihost"], ["--n-model", "2"], ["--multihost", "--packed", "x"],
+    ["--coordinator", "x"]])
 def test_cli_refuses_unported_flags(flag, capsys):
     """Each unported flag exits 2 naming itself and its ROADMAP.md item,
     before a corpus is read (--data-dir, --packed and --log-images are
@@ -470,6 +556,18 @@ def test_cli_refuses_unported_flags(flag, capsys):
     err = capsys.readouterr().err
     assert "not yet ported" in err and "ROADMAP.md Queue 1 item" in err
     assert flag[0] in err
+
+
+def test_server_refuses_mesh(capsys):
+    """serve.app refuses --mesh by name, pointing to its ROADMAP.md item,
+    as the trainer refuses its unported flags."""
+    from music_generation_tpu_torch.serve import app as t_app
+    with pytest.raises(SystemExit) as e:
+        t_app.configure(["--tiny", "--device", "cpu", "--mesh", "4x2"])
+    assert e.value.code == 2
+    err = capsys.readouterr().err
+    assert "--mesh is not yet ported" in err
+    assert "ROADMAP.md Queue 1 item 10" in err
 
 
 def test_cli_refuses_missing_gpu(tmp_path):
