@@ -159,15 +159,34 @@ Phases, each fatal on failure (no exception is caught):
               load_pipeline into the served melody generator: every tensor
               and the served notes and durations of a text equal to the
               trained modules
+ 16. parallel   the trainer CLI at full width (B=8, --durations mas, 4
+              steps) as a one-rank NCCL group (--multihost --coordinator
+              localhost:<port> --nprocs 1 --proc-id 0) in a subprocess
+              (this script with --train-rank: the CLI watched from
+              inside), against the one-device CLI here on the same
+              batches, draws and weights, both with torch's deterministic
+              algorithms: every loss term of every step bit-equal (else
+              within 1e-4, with a second one-device run for the card's own
+              floor), MAS twice per step and the kernel bit for bit on the
+              first step's neg_cent, the c10d collectives of a profiled
+              step, ms per step beside phase 8's; serve.app's songs with
+              --mesh 1x1 over HTTP answering the WAV bytes of the songs
+              without it, and --mesh 2x1 refused naming the device count;
+              then the five offline tools on phase 14's toy corpus and
+              one-step checkpoint: copy-synthesis, the sung song, MAS
+              against ground truth, the two-singer HTTP demo over the
+              exported file and the e2e demo's served melody, each JSON
+              read back
 Launch counts are zeroed just before each main path and read just after
 it: phases 3-4 (the served slices), phase 5 (the variants, which align
 nothing: no MAS launch, kernel or plain), phase 8 (training), each
 decoder's training steps in phase 10, phase 11's training steps and its
 served configurations, phase 12 (which aligns nothing), phase 13's
 served paths (none) and its training step, phase 14's two corpus
-training runs and its served v1 paths (none), and phase 15's families
-(none) and its --bf16 CLI run. The kernels line reports the launches of
-phases 8, 11, 13, 14 and 15's training. The lyric LMs, TeleMelody and the
+training runs and its served v1 paths (none), phase 15's families
+(none) and its --bf16 CLI run, and phase 16's one-rank trainer (in its
+subprocess). The kernels line reports the launches of phases 8, 11, 13,
+14, 15 and 16's training. The lyric LMs, TeleMelody and the
 other train.seq families launch no hand-written kernel. All phases run in
 full float32 (TF32 is off for matmuls and cuDNN convolutions), except
 phase 11's --decoder-bf16 decoders and phase 15's --bf16 steps, which
@@ -1262,6 +1281,7 @@ def phases_before_train(device) -> dict:
 
 
 SCRATCH = Path(__file__).resolve().parent / "build" / "chip_smoke"
+KEPT = SCRATCH / "kept"   # phase 14's corpus and step file, for phase 16
 DECODER_TEXT = "小小的天有大大的梦想，我知道我一直有双隐形的翅膀"
 DECODER_STEPS = 3         # full-width training steps per iSTFT decoder
 
@@ -2736,8 +2756,8 @@ def trainer_probe():
         probe["states"] = create(svs_cfg, tcfg, device)
         return probe["states"]
 
-    def make_train_step(svs_cfg, tcfg):
-        step = make(svs_cfg, tcfg)
+    def make_train_step(svs_cfg, tcfg, *rest):
+        step = make(svs_cfg, tcfg, *rest)
 
         def timed(*args, **kwargs):
             torch.cuda.synchronize()
@@ -2926,7 +2946,12 @@ def phase_corpus(device) -> dict:
         torch.cuda.empty_cache()
         runs["npy"], probe = corpus_train_run(
             device, "--data-dir", toy["npy"], 1, root / "ck_npy")
+        # the corpus and this MAS-trained step file feed phase 16's tools
+        KEPT.mkdir(parents=True, exist_ok=True)
+        shutil.move(str(root / "ck_npy" / "step_1.pt"),
+                    str(KEPT / "step_1.pt"))
         shutil.rmtree(root / "ck_npy")
+        shutil.move(toy["npy"], str(KEPT / "npy"))
         for run in runs.values():
             if run["steps_per_epoch"] != TOY_UTTS // TRAIN_BATCH:
                 raise AssertionError(f"steps_per_epoch "
@@ -3435,8 +3460,390 @@ def phase_seq_train(device, f32_row: dict) -> dict:
     return rows
 
 
+PARALLEL_STEPS = 4        # the one-rank trainer CLI's steps in phase 16:
+                          # cold, two warm (timed), one profiled
+
+
+def collective_counts(prof) -> dict:
+    """Collective calls recorded by torch.profiler: the host's c10d ops
+    (one per collective; each also records an "nccl:" span) and device
+    kernels whose names carry "nccl"."""
+    from torch.autograd import DeviceType
+    host, device = {}, {}
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.device_type() == DeviceType.CUDA:
+            if "nccl" in name.lower():
+                device[name[:60]] = device.get(name[:60], 0) + 1
+        elif name.startswith("c10d::"):
+            host[name] = host.get(name, 0) + 1
+    return {"host_ops": host, "device_kernels": device,
+            "host_total": sum(host.values()),
+            "device_total": sum(device.values())}
+
+
+def deterministic(on: bool = True):
+    """torch's deterministic algorithms (warnings, not errors, where an op
+    has none) and cuDNN's, no autotuning: two runs of one step on one card
+    then differ only where the code differs."""
+    import torch
+    torch.use_deterministic_algorithms(on, warn_only=True)
+    torch.backends.cudnn.deterministic = on
+    torch.backends.cudnn.benchmark = False
+
+
+def train_rank(out: str, argv: list) -> int:
+    """``python3 chip_smoke.py --train-rank OUT.json -- ARGV``: the
+    trainer CLI (train.__main__.main(ARGV)) in this process, watched:
+    trainer_probe's step walls and first MAS input, the MAS kernel's
+    launches and plain calls over the run, the collectives of its last
+    step under torch.profiler, and the kernel against the plain version on
+    the captured neg_cent (after the counts are read). Writes OUT.json."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from music_generation_tpu_torch.ops import maximum_path
+    from music_generation_tpu_torch.train import trainer
+    from music_generation_tpu_torch.train.__main__ import main as train_main
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    deterministic()
+    report = {}
+
+    def make_profiled(*args, **kwargs):
+        step = make(*args, **kwargs)
+        calls = []
+
+        def run(*a, **k):
+            calls.append(1)
+            if len(calls) != PARALLEL_STEPS:
+                return step(*a, **k)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                out = step(*a, **k)
+                torch.cuda.synchronize()
+            report["collectives_step"] = collective_counts(prof)
+            return out
+        return run
+
+    maximum_path.kernel_launches = 0
+    maximum_path.plain_calls = 0
+    with trainer_probe() as probe:
+        make = trainer.make_train_step        # the probe's timed one
+        trainer.make_train_step = make_profiled
+        try:
+            train_main(argv)
+        finally:
+            trainer.make_train_step = make
+        report["mas_launches"] = maximum_path.kernel_launches
+        report["mas_plain_calls"] = maximum_path.plain_calls
+        report["step_ms"] = probe["step_ms"]
+        neg_cent, mask = probe["neg_cent"]
+    report["kernel_vs_plain"] = kernel_equals_plain(
+        neg_cent, mask, "the one-rank NCCL step's neg_cent")
+    report["neg_cent_dtype"] = str(neg_cent.dtype)
+    with open(out, "w") as fh:
+        json.dump(report, fh)
+    return 0
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def loss_gap(rows: list, ref: list, keys: list) -> tuple[float, list]:
+    """(max relative difference, ["step:term" not bit-equal]) of two
+    runs' metrics rows; raises on a non-finite term or other steps."""
+    rel, unequal = 0.0, []
+    for a, b in zip(rows, ref):
+        if a["step"] != b["step"]:
+            raise AssertionError("the two runs logged different steps")
+        for k in keys:
+            if not np.isfinite(a[k]):
+                raise AssertionError(f"step {a['step']}: {k} = {a[k]}")
+            if a[k] != b[k]:
+                unequal.append(f"{a['step']}:{k}")
+                rel = max(rel, abs(a[k] - b[k]) / max(abs(b[k]), 1e-12))
+    return rel, unequal
+
+
+def parallel_trainer(device, f32_row: dict) -> dict:
+    """Phase 16a: the trainer CLI at full width as a one-rank NCCL group
+    (--multihost --coordinator ... --nprocs 1 --proc-id 0 --durations mas
+    --batch-size 8), in a subprocess, against the one-device CLI run here
+    on the same batches, draws and weights (both with deterministic
+    algorithms): every loss term of every step, the MAS kernel twice per
+    step and equal to the plain version on the step's neg_cent, the
+    collectives of a step, ms per step. Where a term is not bit-equal, a
+    second one-device run measures the card's own run-to-run floor."""
+    import shutil
+
+    import torch
+    from music_generation_tpu_torch.ops import maximum_path
+    from music_generation_tpu_torch.train.__main__ import main as train_main
+    root = SCRATCH / "parallel"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    common = ["--durations", "mas", "--batch-size", str(TRAIN_BATCH),
+              "--steps", str(PARALLEL_STEPS), "--log-every", "1",
+              "--warmup-steps", "0"]
+    report = root / "rank0.json"
+    t0 = time.time()
+    try:
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--train-rank",
+             str(report), "--", *common, "--ckpt-dir", str(root / "nccl"),
+             "--multihost", "--coordinator", f"localhost:{free_port()}",
+             "--nprocs", "1", "--proc-id", "0"],
+            capture_output=True, text=True, timeout=600,
+            cwd=Path(__file__).resolve().parent)
+        wall = time.time() - t0
+        if proc.returncode:
+            raise AssertionError(f"the one-rank trainer exited "
+                                 f"{proc.returncode}: {proc.stdout[-2000:]}"
+                                 f"{proc.stderr[-3000:]}")
+        for want in ("process 0/1", "mesh: {'data': 1, 'model': 1} over 1 "
+                     "devices"):
+            if want not in proc.stdout:
+                raise AssertionError(f"no {want!r} in {proc.stdout[-2000:]}")
+        rank = json.loads(report.read_text())
+        launches0 = maximum_path.kernel_launches
+
+        def one_device(tag):
+            deterministic()
+            try:
+                train_main(common + ["--device", str(device), "--ckpt-dir",
+                                     str(root / tag)])
+            finally:
+                deterministic(False)
+            with open(root / tag / "logs" / "train_metrics.jsonl") as fh:
+                return [json.loads(line) for line in fh]
+        rows = {"nccl": [], "one": one_device("one")}
+        one_launches = maximum_path.kernel_launches - launches0
+        with open(root / "nccl" / "logs" / "train_metrics.jsonl") as fh:
+            rows["nccl"] = [json.loads(line) for line in fh]
+        step_files = [sorted(os.listdir(root / tag)) for tag in
+                      ("nccl", "one")]
+        keys = [k for k in rows["one"][0] if k.startswith("loss")]
+        rel, unequal = loss_gap(rows["nccl"], rows["one"], keys)
+        floor = None
+        if unequal:  # the card's own run-to-run floor on one device
+            floor = loss_gap(one_device("again"), rows["one"], keys)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    if step_files[0] != step_files[1] or \
+            f"step_{PARALLEL_STEPS}.pt" not in step_files[0]:
+        raise AssertionError(f"step files {step_files}")
+    if rank["mas_launches"] != 2 * PARALLEL_STEPS or rank["mas_plain_calls"]:
+        raise AssertionError(f"the one-rank trainer launched MAS "
+                             f"{rank['mas_launches']} times (plain "
+                             f"{rank['mas_plain_calls']}); want "
+                             f"{2 * PARALLEL_STEPS} and 0")
+    if one_launches != 2 * PARALLEL_STEPS:
+        raise AssertionError(f"the one-device run launched MAS "
+                             f"{one_launches} times")
+    if len(rows["nccl"]) != PARALLEL_STEPS or rel > LOSS_REL_LIMIT:
+        raise AssertionError(f"one-rank NCCL losses against one device: "
+                             f"{len(rows['nccl'])} rows, max relative "
+                             f"{rel:.3e} at {unequal}")
+    warm = rank["step_ms"][1:-1]          # the last step ran profiled
+    return {"steps": PARALLEL_STEPS, "wall_s": wall,
+            "cold_ms": rank["step_ms"][0], "warm_ms": warm,
+            "ms_per_step": float(np.median(warm)),
+            "f32_ms_per_step_phase8": f32_row["ms_per_step"],
+            "loss_terms_bit_equal": not unequal,
+            "loss_terms_unequal": unequal, "loss_rel_max": rel,
+            "one_device_floor": None if floor is None else {
+                "loss_rel_max": floor[0], "unequal": floor[1]},
+            "mas_launches": rank["mas_launches"],
+            "kernel_vs_plain": rank["kernel_vs_plain"],
+            "neg_cent_dtype": rank["neg_cent_dtype"],
+            "collectives_step": rank["collectives_step"],
+            "losses_first": {k: rows["nccl"][0][k] for k in keys}}
+
+
+def serve_mesh(device) -> dict:
+    """Phase 16b: serve.app's songs with --mesh 1x1 over HTTP give the WAV
+    bytes of the songs without --mesh (same seed, same request); --mesh 2x1
+    on this one-card machine is refused, naming the device count."""
+    import io as _io
+
+    import torch
+    from music_generation_tpu_torch.serve import app
+    wavs, walls = [], []
+    for extra in ([], ["--mesh", "1x1"]):
+        args, cfg = app.configure(["--device", str(device)] + extra)
+        songs = app.build_songs(args, cfg)
+        # one batched path: a 1x1 mesh, with or without --mesh, is one row
+        # that runs the synthesizer's own model
+        if any(len(svs.mesh) != 1 or len(svs.mesh[0]) != 1
+               or svs._rows[0].model is not svs.model
+               for svs in songs.synthesizers.values()):
+            raise AssertionError(f"--mesh {extra}: synthesizers' meshes")
+        with http_service(songs) as (_, port):
+            _post(port, REQUESTS[1])               # cold
+            t0 = time.time()
+            out = _post(port, REQUESTS[1])
+            walls.append(time.time() - t0)
+        if out.get("code") != 200:
+            raise AssertionError(f"--mesh {extra}: {out}")
+        wavs.append(base64.b64decode(out["data"]["audio"]))
+        del songs
+        torch.cuda.empty_cache()
+    if wavs[0] != wavs[1]:
+        raise AssertionError("--mesh 1x1 sang other WAV bytes")
+    err = _io.StringIO()
+    with contextlib.redirect_stderr(err):
+        try:
+            app.configure(["--device", str(device), "--mesh", "2x1"])
+        except SystemExit as e:
+            code = e.code
+        else:
+            code = 0
+    n = torch.cuda.device_count()
+    want = f"needs 2 devices; {n} available"
+    if code == 0 or want not in err.getvalue():
+        raise AssertionError(f"--mesh 2x1: exit {code}, {err.getvalue()}")
+    return {"wav_bytes": len(wavs[0]), "equal": True,
+            "warm_request_s": {"unmeshed": walls[0], "mesh_1x1": walls[1]},
+            "mesh_2x1_exit": code,
+            "mesh_2x1_message": err.getvalue().strip().splitlines()[-1]}
+
+
+def load_tool(name: str):
+    import importlib.util
+    path = Path(__file__).resolve().parent / "tools" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def tools_on_card(device) -> dict:
+    """Phase 16c: the port's offline tools on the card, on phase 14's toy
+    corpus and its MAS-trained full-width step_1.pt: copy-synthesis,
+    the sung song, MAS against ground truth (the same file on both
+    sides: the tool's run, not a training comparison), the two-singer
+    HTTP demo over the exported file (it exits non-zero: one file, two
+    seeds of prior noise, no octave between them), and the e2e demo's
+    trained melody served (--only e2e).
+    Each writes its JSON; the headline numbers come back."""
+    import shutil
+    root = SCRATCH / "tools"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    ckpt, npy, dev = str(KEPT / "step_1.pt"), str(KEPT / "npy"), str(device)
+    rows = {}
+    try:
+        t0 = time.time()
+        out = root / "copy.json"
+        load_tool("torch_eval_copy_synthesis").main([
+            "--ckpt", ckpt, "--data-dir", npy, "--n", "4", "--noise-scale",
+            "0", "--device", dev, "--out", str(out)])
+        r = json.loads(out.read_text())
+        rows["eval_copy_synthesis"] = {
+            k: r[k] for k in ("mel_l1_trained", "mel_l1_random_init",
+                              "improvement_x", "f0_rmse_semitones_trained",
+                              "rms_ratio_rec_vs_ref")} | {
+            "wall_s": time.time() - t0}
+        t0 = time.time()
+        out = root / "sung.json"
+        load_tool("torch_eval_sung_song").main([
+            "--ckpt", ckpt, "--device", dev, "--out", str(out)])
+        r = json.loads(out.read_text())
+        rows["eval_sung_song"] = {
+            k: r[k] for k in ("n_notes", "n_tracked_notes",
+                              "note_rmse_semitones",
+                              "frac_notes_within_half_semitone")} | {
+            "wall_s": time.time() - t0}
+        t0 = time.time()
+        out = root / "mas_vs_gt.json"
+        load_tool("torch_mas_vs_gt").main([
+            "--gt-ckpt", ckpt, "--mas-ckpt", ckpt, "--data-dir", npy,
+            "--device", dev, "--out", str(out)])
+        r = json.loads(out.read_text())
+        if r["max_mas_over_gt_ratio"] != 1.0:
+            raise AssertionError(f"mas_vs_gt of one file: {r['pairs']}")
+        rows["mas_vs_gt"] = {"ratio": r["max_mas_over_gt_ratio"],
+                             "wall_s": time.time() - t0}
+        t0 = time.time()
+        load_tool("torch_export_trained_svs").main([
+            "--ckpt", ckpt, "--out", str(root / "served"), "--speakers",
+            "0", "1"])
+        out = root / "ms.json"
+        try:
+            load_tool("torch_multispeaker_demo").main([
+                "--checkpoint-dir", str(root / "served"), "--device", dev,
+                "--port", str(free_port()), "--out", str(out),
+                "--startup-timeout", "300", "--request-timeout", "300"])
+        except SystemExit as e:
+            if "NOT distinct" not in str(e.code):
+                raise
+        r = json.loads(out.read_text())
+        rows["multispeaker_demo"] = {
+            "voices_distinct": r["voices_distinct"],
+            "bright": r["voices"]["bright"], "deep": r["voices"]["deep"],
+            "wall_s": time.time() - t0}
+        t0 = time.time()
+        out = root / "e2e.json"
+        r = load_tool("torch_e2e_trained_demo").main([
+            "--only", "e2e", "--steps", "40", "--device", dev, "--out",
+            str(out)])
+        if json.loads(out.read_text()) != r:
+            raise AssertionError("e2e JSON differs from its report")
+        rows["e2e_trained_demo"] = {
+            "melody_note": r["melody_note"], "duration_mse":
+            r["duration_mse"], "e2e": r["e2e"], "wall_s": time.time() - t0}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(KEPT, ignore_errors=True)
+    return rows
+
+
+def phase_parallel_and_tools(device, f32_row: dict) -> dict:
+    """Phase 16: the one-rank NCCL trainer (16a), serve --mesh (16b), the
+    offline tools on the card (16c)."""
+    import torch
+    start = time.time()
+    rows = {"trainer": parallel_trainer(device, f32_row)}
+    t = rows["trainer"]
+    log(f"parallel phase: one-rank NCCL trainer, {t['steps']} full-width "
+        f"steps at B={TRAIN_BATCH}: warm {t['ms_per_step']:.1f} ms per step "
+        f"(phase 8: {t['f32_ms_per_step_phase8']:.1f}), loss terms "
+        + ("bit-equal to one device" if t["loss_terms_bit_equal"] else
+           f"within {t['loss_rel_max']:.3e} of one device "
+           f"({len(t['loss_terms_unequal'])} unequal; one device against "
+           f"itself: {t['one_device_floor']['loss_rel_max']:.3e}, "
+           f"{len(t['one_device_floor']['unequal'])} unequal)")
+        + f", MAS {t['mas_launches']} launches, kernel == plain on the "
+        f"step's neg_cent, collectives per step: "
+        f"{t['collectives_step']['host_ops']}, NCCL device kernels "
+        f"{t['collectives_step']['device_total']}")
+    torch.cuda.empty_cache()
+    rows["serve_mesh"] = serve_mesh(device)
+    m = rows["serve_mesh"]
+    log(f"parallel phase: --mesh 1x1 WAV == unmeshed ({m['wav_bytes']:,} "
+        f"bytes; warm {m['warm_request_s']['mesh_1x1']:.3f} s vs "
+        f"{m['warm_request_s']['unmeshed']:.3f} s), --mesh 2x1 exit "
+        f"{m['mesh_2x1_exit']}: {m['mesh_2x1_message']}")
+    torch.cuda.empty_cache()
+    rows["tools"] = tools_on_card(device)
+    log("parallel phase: tools " + json.dumps(rows["tools"],
+                                              ensure_ascii=False))
+    rows["phase_s"] = time.time() - start
+    log(f"parallel phase: {rows['phase_s']:.1f} s")
+    return rows
+
+
 def main() -> int:
     import torch
+    if len(sys.argv) > 3 and sys.argv[1] == "--train-rank" and \
+            sys.argv[3] == "--":
+        return train_rank(sys.argv[2], sys.argv[4:])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA device", file=sys.stderr)
@@ -3472,19 +3879,23 @@ def main() -> int:
     corpus_v1 = phase_corpus_and_v1(device)
     torch.cuda.empty_cache()
     seq_train = phase_seq_train(device, train)
+    torch.cuda.empty_cache()
+    parallel = phase_parallel_and_tools(device, train)
     record = earlier.pop("record")
     record["launches"] = (train["mas_launches"]
                           + f0_variants["train"]["mas_launches"]
                           + v1_model["train_plain"]["mas_launches"]
                           + corpus_v1["corpus"]["mas_launches"]
-                          + seq_train["bf16"]["mas_launches"])
+                          + seq_train["bf16"]["mas_launches"]
+                          + parallel["trainer"]["mas_launches"])
     log(json.dumps(earlier | {"train": train, "checkpoint": checkpoint,
                               "decoders": decoders,
                               "f0_variants": f0_variants,
                               "served_surface": surface,
                               "v1_model": v1_model,
                               "corpus_and_v1": corpus_v1,
-                              "seq_train": seq_train},
+                              "seq_train": seq_train,
+                              "parallel": parallel},
                    ensure_ascii=False))
     log(json.dumps({"kernels": [record]}))
     log(json.dumps({"ok": True, "device": {

@@ -107,7 +107,10 @@ def state_dict_from_flax(params: dict, model: nn.Module,
                              f"{out.shape} != {tuple(targets[name].shape)}")
         if name in state:
             raise ValueError(f"two leaves map onto {name}")
-        state[name] = torch.from_numpy(np.array(out))
+        # a C-ordered copy: a transposed view's strides would follow the
+        # tensor (an optimizer moment built from it pairs with the wrong
+        # weights)
+        state[name] = torch.from_numpy(np.array(out, order="C"))
     missing = sorted(set(targets) - set(state)) if strict else []
     if unknown or missing:
         raise ValueError(f"unconsumed leaves: {unknown}; "
@@ -270,4 +273,5 @@ def seq2seq_state_dict_from_flax(params: dict, cfg: Seq2SeqConfig) -> dict:
         if tuple(value.shape) != tuple(targets[name].shape):
             raise ValueError(f"{name}: shape {value.shape} != "
                              f"{tuple(targets[name].shape)}")
-    return {k: torch.from_numpy(np.array(v)) for k, v in named.items()}
+    return {k: torch.from_numpy(np.array(v, order="C"))
+            for k, v in named.items()}

@@ -19,6 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from . import draws
+
 LRELU_SLOPE = 0.1
 
 
@@ -30,7 +32,7 @@ def dropout(x: torch.Tensor, rate: float, deterministic: bool = True,
     if deterministic or rate == 0.0:
         return x
     keep = 1.0 - rate
-    draw = torch.rand(x.shape, generator=generator, device=x.device,
+    draw = draws.rand(x.shape, generator=generator, device=x.device,
                       dtype=x.dtype)
     return torch.where(draw < keep, x / keep, torch.zeros((), dtype=x.dtype,
                                                           device=x.device))

@@ -10,6 +10,8 @@ from typing import Optional
 
 import torch
 
+from . import draws
+
 
 def sequence_mask(lengths: torch.Tensor, max_length: int) -> torch.Tensor:
     """[B] lengths -> [B, T] bool mask."""
@@ -62,7 +64,7 @@ def rand_slice_segments(x: torch.Tensor, lengths: torch.Tensor,
     + 1, 1)) with u [B] uniform in [0, 1), passed in or drawn from
     ``generator``. Returns (slices [B, S, C], starts [B] int32)."""
     if u is None:
-        u = torch.rand(x.shape[0], generator=generator, device=x.device)
+        u = draws.rand((x.shape[0],), generator=generator, device=x.device)
     max_start = torch.clamp(lengths - segment_size + 1, min=1)
     starts = (u * max_start.to(u.dtype)).to(torch.int32)
     return slice_segments(x, starts, segment_size), starts

@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...core import draws
 from ...core.attention import TransformerEncoder
 from ...core.flows import ResidualCouplingBlock
 from ...core.layers import Conv1d, conv_ntc
@@ -271,7 +272,7 @@ class PosteriorEncoder(nn.Module):
         stats = conv_ntc(self.proj, x) * mask
         m, logs = stats[..., :self.inter], stats[..., self.inter:]
         if noise is None:
-            noise = torch.randn(m.shape, generator=generator,
+            noise = draws.randn(m.shape, generator=generator,
                                 device=m.device, dtype=m.dtype)
         z = (m + noise * torch.exp(logs)) * mask
         return z, m, logs, x
@@ -598,7 +599,7 @@ class VISinger(nn.Module):
             deterministic=deterministic, generator=generator)
 
         if noise_rev is None:
-            noise_rev = torch.randn(m_p.shape, generator=generator,
+            noise_rev = draws.randn(m_p.shape, generator=generator,
                                     device=m_p.device, dtype=m_p.dtype)
         z_hat = self.spec_flow(m_p + noise_rev * torch.exp(logs_p), y_mask,
                                reverse=True)

@@ -5,7 +5,8 @@ sentence split, whole-song melody, G2P score alignment, one batched SVS
 call with on-device int16 peak normalisation, 0.2 s leading pad, WAV bytes,
 and, for a melody that gives MIDI tracks (TeleMelody), the rendered
 accompaniment mixed under the vocal; the halo-chunked vocoder decode,
-streaming (stream_score, stream_song) and pipe-format score lines.
+streaming (stream_score, stream_song) and pipe-format score lines, and
+the batched SVS call over a (data, model) device mesh (``mesh=``).
 Inputs are padded to the same (phone, frame) buckets as the JAX package:
 the vocoder has no mask, so the frame bucket shapes the last samples of
 every sentence and must match for the two packages to agree.
@@ -14,6 +15,8 @@ every sentence and must match for the two packages to agree.
 from __future__ import annotations
 
 import bisect
+import contextlib
+import copy
 import dataclasses
 import logging
 import re
@@ -103,6 +106,49 @@ def _host_array(copy) -> np.ndarray:
     return host.numpy()
 
 
+class _MeshRow:
+    """One data row of a serving mesh: a copy of the model on the row's
+    first device whose large weights (parallel.param_shardings) are split
+    over the row's devices and gathered onto the first at use. A row of
+    one device that is the model's own (``own``) uses the model itself."""
+
+    def __init__(self, model, devices: list, own: bool):
+        from ..parallel import param_shardings
+        self.device, n_model = devices[0], len(devices)
+        self.model = model if own and n_model == 1 else \
+            copy.deepcopy(model).to(self.device)
+        self.shards, params = {}, dict(self.model.named_parameters())
+        for name, axis in param_shardings(self.model, n_model).items():
+            if axis is None:
+                continue
+            p = params[name]
+            self.shards[name] = (axis, [c.to(d).clone() for c, d in zip(
+                p.detach().chunk(n_model, dim=axis), devices)])
+            p.data = torch.empty(0, dtype=p.dtype, device=self.device)
+        self._lock = threading.Lock()
+
+    @contextlib.contextmanager
+    def gathered(self):
+        """The row's model with its full weights in place (one caller at
+        a time, when it has shards)."""
+        if not self.shards:
+            yield self.model
+            return
+        with self._lock:
+            saved = {}
+            for name, (axis, parts) in self.shards.items():
+                mod_name, _, leaf = name.rpartition(".")
+                mod = self.model.get_submodule(mod_name)
+                saved[name] = (mod, leaf, mod._parameters[leaf])
+                mod._parameters[leaf] = torch.cat(
+                    [t.to(self.device) for t in parts], dim=axis)
+            try:
+                yield self.model
+            finally:
+                for mod, leaf, p in saved.values():
+                    mod._parameters[leaf] = p
+
+
 class SVSSynthesizer:
     """Score -> waveform on one device, batched over sentences.
 
@@ -111,7 +157,14 @@ class SVSSynthesizer:
     centre-cropped (_chunked_decode), which bounds the decoder's
     activations; the halo must cover the decoder's receptive field
     (models.svs.hifigan.receptive_radius_frames) for the windows to give
-    the monolithic decode's samples."""
+    the monolithic decode's samples.
+
+    ``mesh``: a parallel.make_mesh grid [n_data][n_model] of devices for
+    the batched call (place_on_mesh): the batch is padded to a multiple of
+    n_data and each data row's sentences run on that row. The prior noise
+    is drawn as on one device, so the sentences' samples do not depend on
+    the mesh. The unbatched paths (synthesize_score, stream_score, the
+    fused path) stay on ``device``, the mesh's first."""
 
     # largest sentence batch per device call: inherited; not yet measured
     # on the H100
@@ -125,8 +178,8 @@ class SVSSynthesizer:
                  frontend: Optional[ScoreFrontend] = None, device=None,
                  max_batch: Optional[int] = None,
                  decode_chunk_frames: Optional[int] = None,
-                 decode_chunk_halo: int = 24):
-        self.device = resolve_device(device)
+                 decode_chunk_halo: int = 24, mesh=None):
+        self.device = resolve_device(mesh[0][0] if mesh else device)
         self.cfg = cfg or SVSConfig()
         self.frontend = frontend or ScoreFrontend()
         self.max_batch = max_batch or self.MAX_BATCH
@@ -134,10 +187,34 @@ class SVSSynthesizer:
         self.decode_chunk_halo = decode_chunk_halo
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
-            self.model = VISinger(self.cfg)
-        self.model.to(self.device).eval()
+            self._model = VISinger(self.cfg)
+        self._model.to(self.device).eval()
         self.generator = torch.Generator(self.device)
         self.generator.manual_seed(seed + 17)
+        self.place_on_mesh(mesh or [[self.device]])
+
+    @property
+    def model(self) -> VISinger:
+        return self._model
+
+    @model.setter
+    def model(self, model: VISinger) -> None:
+        """A new model, placed on the current mesh."""
+        self._model = model
+        self.place_on_mesh(self.mesh)
+
+    def place_on_mesh(self, mesh) -> None:
+        """Run batched calls on ``mesh`` (a make_mesh grid whose first
+        device is this synthesizer's), each row from a copy of the current
+        weights: call again after loading others into ``model``. The
+        default mesh is the synthesizer's device alone, whose row is the
+        model itself."""
+        if mesh[0][0] != self.device:
+            raise ValueError(f"the mesh starts at {mesh[0][0]}; this "
+                             f"synthesizer is on {self.device}")
+        self.mesh = mesh
+        self._rows = [_MeshRow(self.model, row, own=r == 0)
+                      for r, row in enumerate(mesh)]
 
     def _score_frame_bound(self, score) -> int:
         return (int(np.ceil(score.note_durations.sum()
@@ -177,7 +254,8 @@ class SVSSynthesizer:
             noise=noise, generator=self.generator)
 
     def _chunked_decode(self, hidden: torch.Tensor,
-                        exc: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        exc: Optional[torch.Tensor] = None,
+                        model=None) -> torch.Tensor:
         """The vocoder over frame windows (the JAX twin's lax.scan as a
         loop): ceil(f / chunk) windows of chunk + 2 * halo frames, the last
         output window moved back to end at f; window starts are clamped to
@@ -186,13 +264,15 @@ class SVSSynthesizer:
         as the monolithic decode does. Each window's centre chunk is
         cropped at off * hop. Under NSF the full-length source ``exc`` is
         sliced at ws * hop, which keeps its phase continuous. f <= win is
-        one plain decode_hidden."""
+        one plain decode_hidden. ``model``: a mesh row's (default the
+        synthesizer's)."""
+        model = model or self.model
         chunk, halo = self.decode_chunk_frames, self.decode_chunk_halo
         hop = self.cfg.hop_length
         b, f, _ = hidden.shape
         win = chunk + 2 * halo
         if f <= win:
-            return self.model.decode_hidden(hidden, exc)
+            return model.decode_hidden(hidden, exc)
         out = torch.empty((b, f * hop, 1), dtype=torch.float32,
                           device=hidden.device)
         for k in range(-(-f // chunk)):
@@ -200,7 +280,7 @@ class SVSSynthesizer:
             ws = min(max(out_start - halo, 0), f - win)
             off = out_start - ws
             e = None if exc is None else exc[:, ws * hop: (ws + win) * hop]
-            y = self.model.decode_hidden(hidden[:, ws: ws + win], e)
+            y = model.decode_hidden(hidden[:, ws: ws + win], e)
             out[:, out_start * hop: (out_start + chunk) * hop] = \
                 y[:, off * hop: (off + chunk) * hop]
         return out
@@ -327,13 +407,47 @@ class SVSSynthesizer:
         """Enqueue one batched SVS call (no host sync): infer (the vocoder
         chunked when decode_chunk_frames is set), then the per-sentence
         32767/max(0.01, peak) int16 normalisation on the device. Returns a
-        handle for collect_batch."""
-        hidden, mel_len, aux = self._infer_hidden(scores, noise)
-        decode = (self._chunked_decode if self.decode_chunk_frames
-                  else self.model.decode_hidden)
-        audio = decode(hidden, aux.get("exc"))
-        return (peak_int16(audio, mel_len, self.cfg.hop_length), mel_len,
-                len(scores))
+        handle for collect_batch. Each data row of the mesh runs its
+        block of the batch (padded to a multiple of the rows) from the
+        prior noise one device would draw."""
+        max_frames, packed = self._batch_inputs(scores)
+        b, n_data = len(scores), len(self._rows)
+        if noise is None:
+            noise = torch.randn((b, max_frames, self.cfg.inter_channels),
+                                generator=self.generator, device=self.device)
+        k = -(-b // n_data)
+        pad = k * n_data - b
+        if pad:  # padding rows: one phone, no duration, zero noise
+            extra = torch.zeros((5, pad, packed.shape[2]), dtype=packed.dtype,
+                                device=packed.device)
+            extra[3, :, 0] = 1
+            packed = torch.cat([packed, extra], dim=1)
+            noise = torch.cat([noise,
+                               noise.new_zeros((pad, *noise.shape[1:]))])
+        pieces = []
+        for r, row in enumerate(self._rows):
+            with row.gathered() as model:
+                pieces.append(self._infer_decode(
+                    model, packed[:, r * k: (r + 1) * k].to(row.device),
+                    max_frames, noise[r * k: (r + 1) * k].to(row.device)))
+        audio = torch.cat([a.to(self.device) for a, _ in pieces])[:b]
+        mel_len = torch.cat([m.to(self.device) for _, m in pieces])[:b]
+        return audio, mel_len, b
+
+    def _infer_decode(self, model, packed: torch.Tensor, max_frames: int,
+                      noise: Optional[torch.Tensor]):
+        """(int16 audio [b, S], mel_len [b]) of one packed batch through
+        ``model``: infer_hidden, the vocoder (chunked when
+        decode_chunk_frames is set), the int16 peak normalisation."""
+        hidden, mel_len, aux = model.infer_hidden(
+            packed[0], packed[3, :, 0], packed[1],
+            packed[4].view(torch.float32), packed[2], max_frames,
+            noise=noise, generator=self.generator)
+        if self.decode_chunk_frames:
+            audio = self._chunked_decode(hidden, aux.get("exc"), model)
+        else:
+            audio = model.decode_hidden(hidden, aux.get("exc"))
+        return peak_int16(audio, mel_len, self.cfg.hop_length), mel_len
 
     def collect_batch(self, handle) -> list[np.ndarray]:
         audio, mel_len, b = handle

@@ -506,11 +506,22 @@ def configure(argv=None):
                         help="torch device the models run on (default cuda; "
                              "raises when no GPU is present)")
     parser.add_argument("--mesh", default=None, metavar="DATAxMODEL",
-                        help="multi-device SVS inference mesh: not yet "
-                             "ported")
+                        help="multi-device SVS inference mesh, e.g. 4x2: "
+                             "each batched call's sentences split over "
+                             "`data` rows of devices, each row's large "
+                             "weights split over its `model` devices")
     args = parser.parse_args(argv)
+    args.mesh_grid = None
     if args.mesh is not None:
-        parser.error("--mesh is not yet ported (ROADMAP.md Queue 1 item 10)")
+        from ..parallel import make_mesh
+        try:
+            n_data, n_model = (int(x) for x in args.mesh.lower().split("x"))
+            args.mesh_grid = make_mesh(
+                n_data, n_model,
+                devices=None if args.device.startswith("cuda")
+                else [args.device])
+        except ValueError as e:
+            parser.error(f"--mesh {args.mesh}: {e}")
     if args.nsf and args.decoder != "hifigan":
         # NSF excitation is wired into the HiFi-GAN decoder only
         parser.error("--nsf requires --decoder hifigan")
@@ -539,12 +550,15 @@ def build_songs(args, cfg: ServiceConfig, seed: int = 0):
     """The song pipeline main() serves: the variant's melody generator
     around one SVS model per speaker with the SVS flags (--decoder, --nsf,
     --f0, --f0-residual, --decoder-bf16), on --device, from ``seed``; then
-    the checkpoint dir's weights, when the config names one."""
+    the checkpoint dir's weights, when the config names one; with --mesh
+    each SVS model's batched calls then run over the mesh."""
     from ..pipeline.synthesis import build_svs_synthesizers
+    mesh = getattr(args, "mesh_grid", None)
     songs = variant_song_synthesizer(
         VARIANTS[args.variant],
         build_svs_synthesizers(cfg.tiny, cfg.n_speakers, seed=seed,
-                               device=args.device, decoder=args.decoder,
+                               device=mesh[0][0] if mesh else args.device,
+                               decoder=args.decoder,
                                nsf=args.nsf, f0_mode=args.f0,
                                f0_residual=args.f0_residual,
                                decoder_bf16=args.decoder_bf16),
@@ -555,6 +569,12 @@ def build_songs(args, cfg: ServiceConfig, seed: int = 0):
         logging.getLogger(cfg.log_name).info(
             "loaded checkpoints from %s: %s", cfg.checkpoint_dir,
             ", ".join(loaded) or "none")
+    if mesh:
+        from ..parallel import mesh_shape
+        for svs in songs.synthesizers.values():
+            svs.place_on_mesh(mesh)
+        logging.getLogger(cfg.log_name).info("inference mesh: %s",
+                                             mesh_shape(mesh))
     return songs
 
 

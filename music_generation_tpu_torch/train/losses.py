@@ -4,6 +4,16 @@ Twin of music_generation_tpu/train/losses.py: LSGAN adversarial + feature
 matching + mel L1 + bidirectional KL + duration + F0 + loudness + (AE)
 linear-spectrogram reconstruction, and the optional multi-resolution STFT
 loss. Log-scales are clamped to +-LOGS_CLAMP.
+
+The JAX package computes every term on the global batch array. A
+data-parallel rank of the port holds only its rows, so with a ``mesh``
+(parallel.StepMesh) each function returns this rank's share of the global
+term: a masked mean is the local masked sum over the all-reduced
+denominator, a plain mean the local mean over the number of ranks (every
+rank holds as many rows, of one shape), and the spectral convergence
+ratio the global norms' ratio over the ranks. The shares sum to the
+global term, and so do their gradients once summed over the ranks. Without
+a mesh each is the one-device term.
 """
 
 from __future__ import annotations
@@ -15,50 +25,62 @@ from ..audio.stft import spectrogram
 LOGS_CLAMP = 7.0  # bounds exp(+-2 logs) to ~1e6; keeps early GAN steps finite
 
 
-def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    return torch.sum(x * mask) / torch.clamp(torch.sum(mask), min=1.0)
+def _masked_mean(x: torch.Tensor, mask: torch.Tensor, mesh=None,
+                 scale: float = 1.0) -> torch.Tensor:
+    den = torch.sum(mask)
+    if mesh is not None:
+        den = mesh.sum(den)
+    if scale != 1.0:
+        den = den * scale
+    return torch.sum(x * mask) / torch.clamp(den, min=1.0)
 
 
-def kl_divergence(z_p, logs_q, m_p, logs_p, mask):
+def batch_mean(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """torch.mean(x); with a mesh, this rank's share of the global mean."""
+    m = torch.mean(x)
+    return m if mesh is None else m / mesh.world
+
+
+def kl_divergence(z_p, logs_q, m_p, logs_p, mask, mesh=None):
     """KL(q||p) with q given by its sample z_p (the VITS kl_loss form)."""
     logs_p = torch.clamp(logs_p, -LOGS_CLAMP, LOGS_CLAMP)
     logs_q = torch.clamp(logs_q, -LOGS_CLAMP, LOGS_CLAMP)
     kl = logs_p - logs_q - 0.5
     kl = kl + 0.5 * ((z_p - m_p) ** 2) * torch.exp(-2.0 * logs_p)
-    return _masked_mean(kl, mask)
+    return _masked_mean(kl, mask, mesh)
 
 
-def gaussian_nll(x, m, logs, mask):
+def gaussian_nll(x, m, logs, mask, mesh=None):
     """Mean negative log-likelihood of x under N(m, exp(logs)) (the
     reverse-KL surrogate)."""
     logs = torch.clamp(logs, -LOGS_CLAMP, LOGS_CLAMP)
     nll = logs + 0.5 * ((x - m) ** 2) * torch.exp(-2.0 * logs)
-    return _masked_mean(nll, mask)
+    return _masked_mean(nll, mask, mesh)
 
 
 def duration_loss(fraction_pred, note_durations, phone_durations,
-                  frame_seconds, mask):
+                  frame_seconds, mask, mesh=None):
     """MSE in seconds between predicted phone lengths (fraction * note
     length) and the frame-quantized target durations."""
     pred_seconds = fraction_pred * note_durations
     true_seconds = phone_durations.to(torch.float32) * frame_seconds
-    return _masked_mean((pred_seconds - true_seconds) ** 2, mask)
+    return _masked_mean((pred_seconds - true_seconds) ** 2, mask, mesh)
 
 
-def f0_loss(log_f0_pred, log_f0_true, mask):
-    return _masked_mean(torch.abs(log_f0_pred - log_f0_true), mask)
+def f0_loss(log_f0_pred, log_f0_true, mask, mesh=None):
+    return _masked_mean(torch.abs(log_f0_pred - log_f0_true), mask, mesh)
 
 
-def l1_masked(a, b, mask=None):
+def l1_masked(a, b, mask=None, mesh=None):
     d = torch.abs(a - b)
     if mask is None:
-        return torch.mean(d)
-    return torch.sum(d * mask) / torch.clamp(torch.sum(mask) * d.shape[-1],
-                                             min=1.0)
+        return batch_mean(d, mesh)
+    return _masked_mean(d, mask, mesh, scale=d.shape[-1])
 
 
 def multires_stft_loss(y_fake, y_real,
-                       resolutions=((512, 128), (1024, 256), (2048, 512))):
+                       resolutions=((512, 128), (1024, 256), (2048, 512)),
+                       mesh=None):
     """Multi-resolution STFT loss (Parallel WaveGAN eq. 4-6): spectral
     convergence + log-magnitude L1, averaged over the resolutions the
     segment can fill (or one that fits, for a short segment)."""
@@ -69,41 +91,48 @@ def multires_stft_loss(y_fake, y_real,
     for n_fft, hop in resolutions:
         s_fake = spectrogram(y_fake, n_fft=n_fft, hop=hop, win_length=n_fft)
         s_real = spectrogram(y_real, n_fft=n_fft, hop=hop, win_length=n_fft)
-        sc = torch.linalg.vector_norm(s_real - s_fake) / torch.clamp(
-            torch.linalg.vector_norm(s_real), min=1e-6)
-        log_l1 = torch.mean(torch.abs(
+        if mesh is None:
+            sc = torch.linalg.vector_norm(s_real - s_fake) / torch.clamp(
+                torch.linalg.vector_norm(s_real), min=1e-6)
+        else:
+            num = mesh.sum_grad(torch.sum((s_real - s_fake) ** 2))
+            den = mesh.sum(torch.sum(s_real ** 2))
+            sc = torch.sqrt(num) / torch.clamp(torch.sqrt(den),
+                                               min=1e-6) / mesh.world
+        log_l1 = batch_mean(torch.abs(
             torch.log(torch.clamp(s_real, min=1e-5))
-            - torch.log(torch.clamp(s_fake, min=1e-5))))
+            - torch.log(torch.clamp(s_fake, min=1e-5))), mesh)
         total = total + sc + log_l1
     return total / len(resolutions)
 
 
-def energy_loss(y_fake, y_real, eps: float = 1e-4):
+def energy_loss(y_fake, y_real, eps: float = 1e-4, mesh=None):
     """Squared log-RMS ratio between generated and real segments. eps is
     added outside the sqrt, as in the JAX package, so an exactly silent
     segment has a NaN gradient there too."""
     rms_f = torch.sqrt(torch.mean(y_fake ** 2, dim=-1)) + eps
     rms_r = torch.sqrt(torch.mean(y_real ** 2, dim=-1)) + eps
-    return torch.mean(torch.log(rms_f / rms_r) ** 2)
+    return batch_mean(torch.log(rms_f / rms_r) ** 2, mesh)
 
 
-def feature_matching_loss(fmap_real, fmap_gen):
+def feature_matching_loss(fmap_real, fmap_gen, mesh=None):
     loss = 0.0
     for fr, fg in zip(fmap_real, fmap_gen):
         for r, g in zip(fr, fg):
-            loss = loss + torch.mean(torch.abs(r.detach() - g))
+            loss = loss + batch_mean(torch.abs(r.detach() - g), mesh)
     return loss * 2.0
 
 
-def generator_adv_loss(disc_gen_outputs):
+def generator_adv_loss(disc_gen_outputs, mesh=None):
     loss = 0.0
     for dg in disc_gen_outputs:
-        loss = loss + torch.mean((1.0 - dg) ** 2)
+        loss = loss + batch_mean((1.0 - dg) ** 2, mesh)
     return loss
 
 
-def discriminator_adv_loss(disc_real_outputs, disc_gen_outputs):
+def discriminator_adv_loss(disc_real_outputs, disc_gen_outputs, mesh=None):
     loss = 0.0
     for dr, dg in zip(disc_real_outputs, disc_gen_outputs):
-        loss = loss + torch.mean((1.0 - dr) ** 2) + torch.mean(dg ** 2)
+        loss = (loss + batch_mean((1.0 - dr) ** 2, mesh)
+                + batch_mean(dg ** 2, mesh))
     return loss

@@ -1,6 +1,6 @@
 """GAN trainer for VISinger: one train step, its optimizer, checkpoints.
 
-Twin of music_generation_tpu/train/trainer.py on one device. A step is a
+Twin of music_generation_tpu/train/trainer.py. A step is a
 discriminator update on a fresh generator sample, then a generator update
 against the updated discriminator, with the JAX package's loss terms and
 metrics. The optimizer is optax's chain: its clips, schedule and
@@ -8,6 +8,14 @@ accumulation by hand around torch's fused Adam (``Optimizer``).
 Checkpoints are ``torch.save`` files, ``step_<n>.pt``, under the JAX
 package's rules: keep the newest ``keep_last`` plus the one with the
 lowest ``loss_mel`` (``best.json``).
+
+On several devices (one process each, parallel.StepMesh) a step is the
+one-process step on the concatenated batch: every rank draws the global
+noise and keeps its rows (core.draws), computes its share of each loss
+(train.losses), and sums its gradients over the ranks before the update;
+with ``n_model`` > 1 the large weights and their Adam moments are held as
+shards over the model group and gathered at use (``distribute_states``).
+The metrics are the global values, the same on every rank.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ import torch
 from torch import nn
 
 from ..audio.stft import mel_spectrogram
+from ..core import draws
 from ..core.masking import slice_segments
 from ..device import resolve_device
 from ..models.svs import MultiPeriodDiscriminator, SVSConfig, VISinger
@@ -67,11 +76,14 @@ class TrainConfig:
     log_images: bool = False
 
 
-def clip_by_global_norm(grads: list, max_norm: float) -> list:
+def clip_by_global_norm(grads: list, max_norm: float,
+                        norm_fn=None) -> list:
     """optax.clip_by_global_norm: every gradient scaled by max_norm / norm
     when the global norm is >= max_norm (not clip_grad_norm_'s max_norm /
-    (norm + 1e-6)), with no host sync."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    (norm + 1e-6)), with no host sync. ``norm_fn(grads)`` replaces the
+    norm (sharded gradients: the norm over every shard)."""
+    norm = (norm_fn(grads) if norm_fn is not None else
+            torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads))))
     scale = torch.where(norm < max_norm, torch.ones_like(norm),
                         max_norm / norm)
     return torch._foreach_mul(grads, scale)
@@ -97,6 +109,7 @@ class Optimizer:
     def __init__(self, params, cfg: TrainConfig, lr_scale: float = 1.0):
         self.params = [p for p in params]
         self.cfg = cfg
+        self.lr_scale = lr_scale
         self.peak_lr = cfg.learning_rate * lr_scale
         self.updates_per_epoch = max(
             cfg.steps_per_epoch // max(cfg.accumulate_grad_batches, 1), 1)
@@ -107,6 +120,8 @@ class Optimizer:
                                      fused=True)
         self.acc = ([torch.zeros_like(p) for p in self.params]
                     if cfg.accumulate_grad_batches > 1 else None)
+        # the global norm of sharded gradients (distribute_states)
+        self.norm_fn = None
 
     def learning_rate(self, count: int) -> float:
         """The schedule at ``count`` applied updates."""
@@ -135,7 +150,7 @@ class Optimizer:
             if self.mini_step:
                 return
             grads = self.acc
-        grads = clip_by_global_norm(grads, cfg.grad_clip_norm)
+        grads = clip_by_global_norm(grads, cfg.grad_clip_norm, self.norm_fn)
         torch._foreach_clamp_min_(grads, -cfg.grad_clip)
         torch._foreach_clamp_max_(grads, cfg.grad_clip)
         if self.acc is not None:
@@ -166,10 +181,12 @@ class Optimizer:
 @dataclasses.dataclass
 class TrainState:
     """A model, its optimizer and its step count (calls of
-    apply_gradients, as flax's TrainState.step)."""
+    apply_gradients, as flax's TrainState.step). ``shards``: the model's
+    large weights held as this rank's shards (distribute_states)."""
     model: nn.Module
     opt: Optimizer
     step: int = 0
+    shards: Optional[object] = None
 
     def apply_gradients(self, grads) -> None:
         self.opt.update(grads)
@@ -193,6 +210,10 @@ def create_states(svs_cfg: SVSConfig, train_cfg: TrainConfig, device=None
                                        lr_scale=train_cfg.disc_lr_scale)))
 
 
+def _call_with(module: nn.Module, shards, *args, **kwargs):
+    return torch.func.functional_call(module, shards.gather(), args, kwargs)
+
+
 def cast_floats(tree, src: torch.dtype, dst: torch.dtype):
     """``tree`` (tensors in dicts, lists and tuples) with every ``src``
     tensor cast to ``dst``; anything else as it was."""
@@ -205,39 +226,51 @@ def cast_floats(tree, src: torch.dtype, dst: torch.dtype):
     return tree
 
 
-def bf16_call(module: nn.Module, *args, **kwargs):
+def bf16_call(module: nn.Module, *args, shards=None, **kwargs):
     """``module(*args, **kwargs)`` computed from bfloat16 casts of its
     float32 parameters (the JAX trainer's bf16_run): the casts sit in the
     autograd graph, so gradients reach the float32 masters as float32;
     float32 outputs come back. The caller casts the inputs. Each layer
     takes its input's dtype (core.layers._at_dtype), so where an input is
     float32 the op runs in float32, as flax promotes a (float32, bfloat16)
-    pair."""
+    pair. ``shards`` (ShardedParams): their gathered full weights stand in
+    for the module's placeholders."""
+    params = dict(module.named_parameters())
+    if shards is not None:
+        params.update(shards.gather())
     params = {n: p.to(torch.bfloat16) if p.dtype == torch.float32 else p
-              for n, p in module.named_parameters()}
+              for n, p in params.items()}
     out = torch.func.functional_call(module, params, args, kwargs)
     return cast_floats(out, torch.bfloat16, torch.float32)
 
 
+def _module_call(module: nn.Module, train_cfg: TrainConfig, shards=None):
+    if train_cfg.bf16_run:
+        return functools.partial(bf16_call, module, shards=shards)
+    if shards is not None:
+        return functools.partial(_call_with, module, shards)
+    return module
+
+
 def gen_forward(gen: VISinger, batch: dict, train_cfg: TrainConfig,
                 deterministic: bool = False,
-                generator: Optional[torch.Generator] = None, **draws) -> dict:
-    """The training forward on a batch of tensors (``draws``: the noise,
+                generator: Optional[torch.Generator] = None, shards=None,
+                **injected) -> dict:
+    """The training forward on a batch of tensors (``injected``: the noise,
     noise_rev and slice_u of VISinger.forward). The batch's log_f0 drives
     the NSF source of an ``nsf`` generator. Under ``bf16_run`` the
     batch's float32 tensors go in as bfloat16 (bf16_call); the draws stay
-    float32, as the JAX package's in-graph draws are."""
+    float32, as the JAX package's in-graph draws are. ``shards``: the
+    generator's sharded weights (TrainState.shards)."""
+    call = _module_call(gen, train_cfg, shards)
     if train_cfg.bf16_run:
         batch = cast_floats(batch, torch.float32, torch.bfloat16)
-        call = functools.partial(bf16_call, gen)
-    else:
-        call = gen
     return call(batch["phones"], batch["x_lengths"], batch["spec"],
                 batch["y_lengths"], batch["note_ids"], batch["note_durations"],
                 batch["f0_score"], batch["phone_durations"],
                 batch["shengdiao"], deterministic=deterministic,
                 use_mas=train_cfg.use_mas, log_f0=batch["log_f0"],
-                generator=generator, **draws)
+                generator=generator, **injected)
 
 
 def slice_real_audio(audio: torch.Tensor, ids_slice: torch.Tensor,
@@ -248,78 +281,86 @@ def slice_real_audio(audio: torch.Tensor, ids_slice: torch.Tensor,
 
 def disc_apply(disc: MultiPeriodDiscriminator, y_real, y_fake,
                train_cfg: TrainConfig,
-               generator: Optional[torch.Generator] = None):
+               generator: Optional[torch.Generator] = None, shards=None):
     """The discriminator on real and generated segments, with instance
     noise on both when ``disc_input_noise`` > 0 (in bfloat16 under
     ``bf16_run``, float32 out)."""
     s = train_cfg.disc_input_noise
     if s > 0.0:
-        y_real = y_real + s * torch.randn(y_real.shape, generator=generator,
+        y_real = y_real + s * draws.randn(y_real.shape, generator=generator,
                                           device=y_real.device)
-        y_fake = y_fake + s * torch.randn(y_fake.shape, generator=generator,
+        y_fake = y_fake + s * draws.randn(y_fake.shape, generator=generator,
                                           device=y_fake.device)
     if train_cfg.bf16_run:
-        return bf16_call(disc, y_real.to(torch.bfloat16),
-                         y_fake.to(torch.bfloat16))
-    return disc(y_real, y_fake)
+        y_real, y_fake = y_real.to(torch.bfloat16), y_fake.to(torch.bfloat16)
+    return _module_call(disc, train_cfg, shards)(y_real, y_fake)
 
 
 def discriminator_loss(disc, gen_out: dict, batch: dict, svs_cfg: SVSConfig,
                        train_cfg: TrainConfig,
-                       generator: Optional[torch.Generator] = None):
+                       generator: Optional[torch.Generator] = None,
+                       mesh=None, shards=None):
     y_real = slice_real_audio(batch["audio"], gen_out["ids_slice"], svs_cfg)
     d_real, d_fake, _, _ = disc_apply(disc, y_real, gen_out["audio"].detach(),
-                                      train_cfg, generator)
-    return losses.discriminator_adv_loss(d_real, d_fake)
+                                      train_cfg, generator, shards)
+    return losses.discriminator_adv_loss(d_real, d_fake, mesh)
 
 
 def generator_loss(disc, out: dict, batch: dict, svs_cfg: SVSConfig,
                    train_cfg: TrainConfig,
-                   generator: Optional[torch.Generator] = None):
+                   generator: Optional[torch.Generator] = None,
+                   mesh=None, shards=None):
     """(total, metrics) of the generator step: every loss term and metric
-    of the JAX package's gen_loss_fn, summed in its order."""
+    of the JAX package's gen_loss_fn, summed in its order. With a
+    ``mesh`` each is this rank's share of the global value (train.losses);
+    ``shards``: the discriminator's sharded weights."""
     tc = train_cfg
     audio = out["audio"]
     y_real = slice_real_audio(batch["audio"], out["ids_slice"], svs_cfg)
     _, d_fake, fmap_r, fmap_g = disc_apply(disc, y_real, audio, tc,
-                                           generator)
+                                           generator, shards)
     mel_real = mel_spectrogram(y_real[..., 0], svs_cfg.sampling_rate,
                                hop=svs_cfg.hop_length)
     mel_fake = mel_spectrogram(audio[..., 0], svs_cfg.sampling_rate,
                                hop=svs_cfg.hop_length)
     m = {}
-    m["loss_mel"] = losses.l1_masked(mel_fake, mel_real) * tc.c_mel
+    m["loss_mel"] = losses.l1_masked(mel_fake, mel_real, mesh=mesh) * tc.c_mel
     m["loss_kl"] = losses.kl_divergence(out["z_p"], out["logs_q"], out["m_p"],
-                                        out["logs_p"], out["y_mask"]) * tc.c_kl
+                                        out["logs_p"], out["y_mask"],
+                                        mesh) * tc.c_kl
     # the posterior stats are detached: see the JAX package's gen_loss_fn
     m["loss_kl_rev"] = losses.gaussian_nll(
         out["z_hat"], out["m_q"].detach(), out["logs_q"].detach(),
-        out["y_mask"]) * tc.c_kl_rev
+        out["y_mask"], mesh) * tc.c_kl_rev
     m["loss_dur"] = losses.duration_loss(
         out["duration_fraction"], batch["note_durations"],
-        out["duration_targets"], svs_cfg.frame_seconds, out["x_mask"][..., 0])
+        out["duration_targets"], svs_cfg.frame_seconds, out["x_mask"][..., 0],
+        mesh)
     m["loss_f0"] = losses.f0_loss(out["log_f0"], batch["log_f0"],
-                                  out["y_mask"][..., 0])
-    m["loss_adv"] = losses.generator_adv_loss(d_fake) * tc.c_adv
-    m["loss_fm"] = losses.feature_matching_loss(fmap_r, fmap_g) * tc.c_fm
-    m["loss_dc"] = torch.mean(torch.mean(audio[..., 0], dim=1) ** 2) * tc.c_dc
-    m["loss_energy"] = losses.energy_loss(audio[..., 0],
-                                          y_real[..., 0]) * tc.c_energy
+                                  out["y_mask"][..., 0], mesh)
+    m["loss_adv"] = losses.generator_adv_loss(d_fake, mesh) * tc.c_adv
+    m["loss_fm"] = losses.feature_matching_loss(fmap_r, fmap_g,
+                                                mesh) * tc.c_fm
+    m["loss_dc"] = losses.batch_mean(
+        torch.mean(audio[..., 0], dim=1) ** 2, mesh) * tc.c_dc
+    m["loss_energy"] = losses.energy_loss(audio[..., 0], y_real[..., 0],
+                                          mesh=mesh) * tc.c_energy
     total = sum(m.values())
     if tc.c_stft > 0:
         m["loss_stft"] = losses.multires_stft_loss(
-            audio[..., 0], y_real[..., 0]) * tc.c_stft
+            audio[..., 0], y_real[..., 0], mesh=mesh) * tc.c_stft
         total = total + m["loss_stft"]
     if svs_cfg.autoencoder:  # the plain VISinger predicts no spectrogram
         c_spec = tc.c_spec if tc.c_spec is not None else tc.c_mel
         m["loss_spec"] = losses.l1_masked(out["spec_predict"], batch["spec"],
-                                          out["y_mask"]) * c_spec
+                                          out["y_mask"], mesh) * c_spec
         total = total + m["loss_spec"]
     m["loss_gen"] = total
     metrics = {k: v.detach() for k, v in m.items()}
     # tanh-saturation telemetry (see the JAX package's gen_loss_fn)
-    metrics["audio_dc"] = audio.detach().mean()
-    metrics["audio_sat_frac"] = (audio.detach().abs() > 0.95).float().mean()
+    metrics["audio_dc"] = losses.batch_mean(audio.detach(), mesh)
+    metrics["audio_sat_frac"] = losses.batch_mean(
+        (audio.detach().abs() > 0.95).float(), mesh)
     if tc.log_images:
         metrics.update(debug_images(out, batch, svs_cfg))
     return total, metrics
@@ -347,58 +388,162 @@ def debug_images(out: dict, batch: dict, svs_cfg: SVSConfig) -> dict:
     return images
 
 
-def make_train_step(svs_cfg: SVSConfig, train_cfg: TrainConfig):
+def make_train_step(svs_cfg: SVSConfig, train_cfg: TrainConfig, mesh=None):
     """train_step(gen_state, disc_state, batch, generator) -> metrics: one
     GAN step on a batch of tensors, updating both states in place. The
     metrics are 0-dim tensors on the batch's device (and, with
-    ``log_images``, the debug_images tensors)."""
+    ``log_images``, the debug_images tensors). With a ``mesh``
+    (parallel.StepMesh) the batch is this rank's rows of the global batch
+    and ``generator`` is seeded alike on every rank: the step draws the
+    global noise and keeps its rows, takes its share of every loss, sums
+    the gradients over the ranks and returns the global metrics."""
     tc = train_cfg
 
-    def train_step(gen_state: TrainState, disc_state: TrainState,
-                   batch: dict, generator: Optional[torch.Generator] = None
-                   ) -> dict:
+    def reduce(state: TrainState, grads) -> list:
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(state.opt.params, grads)]
+        if mesh is not None:
+            grads = mesh.reduce_grads(grads, _sharded_mask(state))
+        return grads
+
+    def step(gen_state: TrainState, disc_state: TrainState, batch: dict,
+             generator: Optional[torch.Generator]) -> dict:
         gen, disc = gen_state.model, disc_state.model
         if tc.c_adv == 0.0:
             # pure-regression phase: no discriminator update
             d_loss = torch.zeros((), device=batch["audio"].device)
         else:
             with torch.no_grad():
-                gen_out = gen_forward(gen, batch, tc, generator=generator)
+                gen_out = gen_forward(gen, batch, tc, generator=generator,
+                                      shards=gen_state.shards)
             d_loss = discriminator_loss(disc, gen_out, batch, svs_cfg, tc,
-                                        generator)
-            d_grads = torch.autograd.grad(d_loss, disc_state.opt.params)
+                                        generator, mesh, disc_state.shards)
+            d_grads = reduce(disc_state, torch.autograd.grad(
+                d_loss, disc_state.opt.params))
+            if mesh is not None:
+                d_loss = mesh.sum(d_loss)
             # freeze D (params, optimizer state, step) while its loss is
             # under the floor
             if tc.disc_loss_floor <= 0.0 or \
                     float(d_loss.detach()) >= tc.disc_loss_floor:
                 disc_state.apply_gradients(d_grads)
-        out = gen_forward(gen, batch, tc, generator=generator)
+        out = gen_forward(gen, batch, tc, generator=generator,
+                          shards=gen_state.shards)
         total, metrics = generator_loss(disc, out, batch, svs_cfg, tc,
-                                        generator)
-        params = gen_state.opt.params
-        grads = torch.autograd.grad(total, params, allow_unused=True)
-        gen_state.apply_gradients(
-            [torch.zeros_like(p) if g is None else g
-             for p, g in zip(params, grads)])
+                                        generator, mesh, disc_state.shards)
+        grads = torch.autograd.grad(total, gen_state.opt.params,
+                                    allow_unused=True)
+        gen_state.apply_gradients(reduce(gen_state, grads))
+        if mesh is not None:
+            scalars = [k for k, v in metrics.items() if v.ndim == 0]
+            summed = mesh.sum(torch.stack([metrics[k] for k in scalars]))
+            metrics.update(zip(scalars, summed.unbind()))
         metrics["loss_disc"] = d_loss.detach()
         return metrics
+
+    def train_step(gen_state: TrainState, disc_state: TrainState,
+                   batch: dict, generator: Optional[torch.Generator] = None
+                   ) -> dict:
+        if mesh is None:
+            return step(gen_state, disc_state, batch, generator)
+        with draws.global_rows(mesh.world, mesh.rank):
+            return step(gen_state, disc_state, batch, generator)
 
     return train_step
 
 
+def _sharded_mask(state: TrainState) -> list:
+    """Per optimizer parameter: is it a shard (TrainState.shards)?"""
+    shards = state.shards
+    return [shards is not None and name in shards
+            for name, _ in state.model.named_parameters()]
+
+
+def _sharded_norm(mesh, sharded: list):
+    """The global norm of a gradient list whose ``sharded`` entries are
+    shards over the model group: their squares summed over it, the
+    replicated ones counted once."""
+
+    def norm_fn(grads):
+        sq = torch.stack(torch._foreach_norm(grads)) ** 2
+        mask = torch.tensor(sharded, device=sq.device)
+        return torch.sqrt(sq[~mask].sum() + mesh.sum_model(sq[mask].sum()))
+    return norm_fn
+
+
+def distribute_states(gen_state: TrainState, disc_state: TrainState,
+                      mesh, min_size: int = 2 ** 16) -> None:
+    """Hold both states' large weights as this rank's shards over the
+    model group (parallel.ShardedParams; nothing with ``n_model`` 1), each
+    optimizer rebuilt over the shards with its state cut to match: the
+    moments and the accumulator of a shard are its block of the full
+    ones (``min_size``: param_partition_spec's). Restore a checkpoint
+    before, not after."""
+    from ..parallel import shard_params
+    if mesh.n_model == 1:
+        return
+    for state in (gen_state, disc_state):
+        full = state.opt.state_dict()
+        state.shards = shard_params(state.model, mesh.n_model,
+                                    mesh.model_rank, mesh.model_group,
+                                    min_size)
+        params = [state.shards.shards.get(name, p)
+                  for name, p in state.model.named_parameters()]
+        opt = Optimizer(params, state.opt.cfg, state.opt.lr_scale)
+        opt.norm_fn = _sharded_norm(mesh, _sharded_mask(state))
+        opt.load_state_dict(_map_sharded(full, state, state.shards.block))
+        state.opt = opt
+
+
+def _map_sharded(opt_state: dict, state: TrainState, fn) -> dict:
+    """An Optimizer.state_dict() of ``state``'s model with ``fn(name,
+    tensor)`` applied to the moments and the accumulator of every sharded
+    parameter (a copy: the live state is not touched)."""
+    names = [n if n in state.shards else None
+             for n, _ in state.model.named_parameters()]
+    adam = dict(opt_state["adam"])
+    adam["state"] = {i: ({k: fn(names[i], v) if k in ("exp_avg",
+                                                     "exp_avg_sq") else v
+                          for k, v in st.items()} if names[i] else st)
+                     for i, st in adam["state"].items()}
+    acc = opt_state["acc"]
+    if acc is not None:
+        acc = [fn(n, a) if n else a for a, n in zip(acc, names)]
+    return {**opt_state, "adam": adam, "acc": acc}
+
+
+def full_state_dicts(state: TrainState) -> tuple[dict, dict]:
+    """(model state_dict, optimizer state_dict) as one device holds them:
+    a sharded state's weights, moments and accumulator gathered over the
+    model group (a collective: every rank of the group calls it)."""
+    model_sd, opt_sd = state.model.state_dict(), state.opt.state_dict()
+    if state.shards is None:
+        return model_sd, opt_sd
+    shards = state.shards
+    with torch.no_grad():
+        for name, full in shards.gather().items():
+            model_sd[name] = full
+    return model_sd, _map_sharded(opt_sd, state, shards.gather_full)
+
+
 def save_checkpoint(path: str, gen_state: TrainState, disc_state: TrainState,
                     step: int, keep_last: Optional[int] = None,
-                    metric: Optional[float] = None) -> str:
+                    metric: Optional[float] = None,
+                    write: bool = True) -> str:
     """Write <path>/step_<step>.pt; then record ``metric`` in best.json if
     it is the lowest so far and keep only the newest ``keep_last``
-    checkpoints plus the best one."""
-    os.makedirs(path, exist_ok=True)
+    checkpoints plus the best one. Sharded states are gathered first, so
+    the file is the one a single device writes; every rank calls it and
+    only the one with ``write`` writes (the JAX package's process 0)."""
+    (gen_sd, gen_opt), (disc_sd, disc_opt) = (full_state_dicts(gen_state),
+                                              full_state_dicts(disc_state))
     file = os.path.join(path, f"step_{step}.pt")
-    torch.save({"gen": gen_state.model.state_dict(),
-                "gen_opt": gen_state.opt.state_dict(),
+    if not write:
+        return file
+    os.makedirs(path, exist_ok=True)
+    torch.save({"gen": gen_sd, "gen_opt": gen_opt,
                 "gen_step": gen_state.step,
-                "disc": disc_state.model.state_dict(),
-                "disc_opt": disc_state.opt.state_dict(),
+                "disc": disc_sd, "disc_opt": disc_opt,
                 "disc_step": disc_state.step}, file)
     if metric is not None:
         _update_best_pointer(path, step, metric)

@@ -138,7 +138,7 @@ def test_entry_points_refuse_missing_gpu():
 
 def test_port_imports_no_jax():
     """Every module of the port (the trainer and its CLI, the server
-    variants and the seq2seq melody API among them), and
+    variants, the seq2seq melody API and parallel/ among them), and
     chip_smoke.py, leave jax, flax and the JAX package unimported."""
     code = (
         "import pkgutil, importlib, sys\n"
@@ -152,10 +152,53 @@ def test_port_imports_no_jax():
         "assert {p.__name__ + '.train.trainer',\n"
         "        p.__name__ + '.train.__main__',\n"
         "        p.__name__ + '.serve.variants',\n"
+        "        p.__name__ + '.parallel.mesh',\n"
         "        p.__name__ + '.models.melody.seq2seq_api'}"
         " <= set(sys.modules)\n"
         "print('ok', len([k for k in sys.modules\n"
         "                 if k.startswith('music_generation_tpu_torch')]))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         cwd=Path(__file__).resolve().parents[1])
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+PORT_TOOLS = ("torch_eval_copy_synthesis", "torch_eval_sung_song",
+              "torch_mas_vs_gt", "torch_multispeaker_demo",
+              "torch_e2e_trained_demo")
+
+
+def test_port_tools_import_no_jax():
+    """The port's offline tools name no jax, flax or JAX-package module in
+    any import statement (their functions import the port lazily), and
+    loading each leaves jax unimported. tools/torch_import_pipeline.py
+    converts JAX checkpoints and is exempt."""
+    import ast
+    tools = Path(__file__).resolve().parents[1] / "tools"
+    for name in PORT_TOOLS:
+        tree = ast.parse((tools / f"{name}.py").read_text())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                mods = [node.module or ""]
+            else:
+                continue
+            for mod in mods:
+                assert mod.split(".")[0] not in (
+                    "jax", "flax", "music_generation_tpu", "optax",
+                    "orbax"), (name, mod)
+    code = ("import importlib.util, sys\n"
+            f"for n in {PORT_TOOLS!r}:\n"
+            "    spec = importlib.util.spec_from_file_location(\n"
+            "        n, 'tools/' + n + '.py')\n"
+            "    spec.loader.exec_module(importlib.util.module_from_spec("
+            "spec))\n"
+            "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
+            "             ('jax', 'flax', 'music_generation_tpu'))\n"
+            "assert not bad, bad\n"
+            "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
                          cwd=Path(__file__).resolve().parents[1])

@@ -546,28 +546,32 @@ def test_cli_trains_with_mas_on_cpu_and_resumes(tmp_path):
     ["--proc-id", "1"], ["--nprocs", "2"], ["--proc-id", "0"],
     ["--multihost"], ["--n-model", "2"], ["--multihost", "--packed", "x"],
     ["--coordinator", "x"]])
-def test_cli_refuses_unported_flags(flag, capsys):
-    """Each unported flag exits 2 naming itself and its ROADMAP.md item,
-    before a corpus is read (--data-dir, --packed and --log-images are
-    ported: tests/test_torch_dataset.py)."""
+def test_cli_refuses_unported_flags(flag, capsys, monkeypatch):
+    """The multi-device flags are ported (tests/test_torch_multihost.py);
+    a combination that cannot run exits 2 naming its flag before a corpus
+    is read or a process group is joined: a process flag or --n-model > 1
+    without --multihost (one process drives one device), and --multihost
+    with neither --coordinator nor torchrun's environment."""
+    for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
     with pytest.raises(SystemExit) as e:
         train_main(["--tiny", "--device", "cpu", "--steps", "1"] + flag)
     assert e.value.code == 2
     err = capsys.readouterr().err
-    assert "not yet ported" in err and "ROADMAP.md Queue 1 item" in err
     assert flag[0] in err
+    assert "needs --multihost" in err or "torchrun's environment" in err
 
 
 def test_server_refuses_mesh(capsys):
-    """serve.app refuses --mesh by name, pointing to its ROADMAP.md item,
-    as the trainer refuses its unported flags."""
+    """serve.app takes --mesh (tests/test_torch_mesh.py) and refuses a
+    mesh larger than the devices, naming the count, before any model is
+    built."""
     from music_generation_tpu_torch.serve import app as t_app
     with pytest.raises(SystemExit) as e:
         t_app.configure(["--tiny", "--device", "cpu", "--mesh", "4x2"])
     assert e.value.code == 2
     err = capsys.readouterr().err
-    assert "--mesh is not yet ported" in err
-    assert "ROADMAP.md Queue 1 item 10" in err
+    assert "--mesh" in err and "needs 8 devices; 1 available" in err
 
 
 def test_cli_refuses_missing_gpu(tmp_path):

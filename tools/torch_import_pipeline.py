@@ -14,8 +14,26 @@ Two inputs:
   --pth FILE      the reference's VISinger .pth (repeatable: singer ids in
                   order), raw or in the reference trainer's {"model": ...}
                   wrapper, through compat.torch_import. No JAX.
-Both write svs_<id>.pt (and, from a JAX directory of the transformer melody
-family, melody_notes.pt and melody_duration.pt) under --out. --tiny,
+  --jax-step DIR  a JAX GAN trainer's orbax step_<n> directory (gen and
+                  disc, each with params, opt_state and step) -> the port
+                  trainer's <out>/step_<n>.pt (train.trainer.
+                  restore_checkpoint reads it; --tiny, --decoder, --nsf and
+                  --f0-residual are the trainer's flags). Imports jax and
+                  orbax.
+  --jax-seq-step DIR --family F
+                  a JAX train.seq step_<n> directory (params, opt_state,
+                  step) -> <out>/F/step_<n>.pt, the port's
+                  save_seq_checkpoint layout (train.seq --resume reads it;
+                  --tiny as train.seq's). Imports jax and orbax.
+The optimizer state carries across: optax's Adam mu and nu become torch's
+exp_avg and exp_avg_sq, its count the Adam step (and the GAN Optimizer's
+count), MultiSteps' mini_step and acc_grads the Optimizer's mini_step and
+acc, each moment through its parameter's layout transform. A state whose
+layout does not map is left out, as the JAX restore leaves it: the file
+holds the params and the step and a fresh optimizer, and the tool says so.
+The pipeline inputs write svs_<id>.pt (and, from a JAX directory of the
+transformer melody family, melody_notes.pt and melody_duration.pt) under
+--out. --tiny,
 --decoder, --nsf, --f0-residual and --variant select the configuration the
 server will build (serve.app's flags of the same names); a tree of another
 configuration is refused. --no-autoencoder converts the plain (non-AE)
@@ -34,6 +52,11 @@ Usage:
       --out served [--tiny]
   python tools/torch_import_pipeline.py --pth G.pth --no-autoencoder \
       --out served [--tiny]
+  python tools/torch_import_pipeline.py --jax-step ckpts/step_400 \
+      --out port_ckpts [--tiny] [--decoder ...] [--nsf] [--f0-residual]
+  python tools/torch_import_pipeline.py \
+      --jax-seq-step seq/melody_note/step_14 --family melody_note \
+      --out port_seq [--tiny]
 """
 
 from __future__ import annotations
@@ -119,6 +142,159 @@ def import_jax_dir(jax_dir: str, out: str, variant: str = "svs_v6_multispeaker",
     return written
 
 
+def _find(tree, keys: tuple):
+    """The first dict node of ``tree`` (depth first) that holds ``keys``."""
+    if isinstance(tree, dict):
+        if all(k in tree for k in keys):
+            return tree
+        children = tree.values()
+    elif isinstance(tree, (list, tuple)):
+        children = tree
+    else:
+        return None
+    for child in children:
+        found = _find(child, keys)
+        if found is not None:
+            return found
+    return None
+
+
+def _adam_state(opt_tree, to_port, params: list, names: list):
+    """(count, {index: torch Adam state}, mini_step, acc or None) of an
+    optax state tree: ScaleByAdamState's count, mu and nu, and
+    MultiStepsState's mini_step and acc_grads, the moments through
+    ``to_port`` (a flax tree -> port state_dict mapper) in the order of
+    ``names``. Raises ValueError when the layout does not map."""
+    import torch
+    adam = _find(opt_tree, ("count", "mu", "nu"))
+    if adam is None:
+        raise ValueError("no Adam state (count, mu, nu) in the optimizer "
+                         "state")
+    mu, nu = to_port(adam["mu"]), to_port(adam["nu"])
+    count = int(adam["count"])
+    state = {}
+    for i, (name, p) in enumerate(zip(names, params)):
+        if name not in mu or name not in nu:
+            raise ValueError(f"no moments for {name}")
+        if mu[name].shape != p.shape or nu[name].shape != p.shape:
+            raise ValueError(f"moments of {name}: {tuple(mu[name].shape)} "
+                             f"for {tuple(p.shape)}")
+        state[i] = {"step": torch.tensor(float(count)),
+                    "exp_avg": mu[name], "exp_avg_sq": nu[name]}
+    multi = _find(opt_tree, ("mini_step", "acc_grads"))
+    acc = None
+    if multi is not None:
+        grads = to_port(multi["acc_grads"])
+        acc = [grads[n] for n in names]
+    return count, state, (int(multi["mini_step"]) if multi else 0), acc
+
+
+def _step_of(path: str, raw_step) -> int:
+    m = re.fullmatch(r"step_(\d+)", os.path.basename(os.path.normpath(path)))
+    return int(m.group(1)) if m else int(raw_step)
+
+
+def convert_gan_step(step_dir: str, out: str, tiny: bool = False,
+                     decoder: str = "hifigan", nsf: bool = False,
+                     f0_residual: bool = False) -> str:
+    """A JAX GAN trainer step directory -> <out>/step_<n>.pt in the port
+    trainer's layout; returns the file."""
+    import torch
+
+    from music_generation_tpu_torch.compat.from_jax import (
+        mpd_state_dict_from_flax, visinger_state_dict_from_flax)
+    from music_generation_tpu_torch.models.svs import (
+        MultiPeriodDiscriminator, VISinger)
+    from music_generation_tpu_torch.train import TrainConfig, build_svs_config
+    from music_generation_tpu_torch.train.trainer import Optimizer
+
+    cfg = build_svs_config(tiny=tiny, decoder=decoder, nsf=nsf,
+                           f0_residual=f0_residual)
+    raw = _restore_orbax(step_dir)
+    blob = {}
+    for key, build, mapper in (
+            ("gen", lambda: VISinger(cfg),
+             lambda tree: visinger_state_dict_from_flax(tree, cfg)),
+            ("disc", MultiPeriodDiscriminator, mpd_state_dict_from_flax)):
+        with torch.device("meta"):  # the weights come from the tree
+            model = build()
+        model.load_state_dict(mapper(raw[key]["params"]), assign=True)
+        names = [n for n, _ in model.named_parameters()]
+        opt = Optimizer(model.parameters(), TrainConfig())
+        fresh = opt.state_dict()
+        try:
+            count, state, mini_step, acc = _adam_state(
+                raw[key]["opt_state"], mapper, list(model.parameters()),
+                names)
+            opt_sd = {"count": count, "mini_step": mini_step,
+                      "adam": {"state": state,
+                               "param_groups": fresh["adam"]["param_groups"]},
+                      "acc": acc}
+        except (ValueError, KeyError) as e:
+            print(f"{key}: the optimizer state does not map ({e}); "
+                  f"params and step only, with a fresh optimizer")
+            opt_sd = fresh
+        blob.update({key: model.state_dict(), f"{key}_opt": opt_sd,
+                     f"{key}_step": int(raw[key]["step"])})
+    path = os.path.join(out, f"step_{_step_of(step_dir, raw['gen']['step'])}"
+                             f".pt")
+    _save(blob, path)
+    return path
+
+
+def _seq_mapper(family: str, model):
+    """The flax tree -> state_dict mapper of a train.seq family's model
+    (an nn.ModuleDict for the joint families)."""
+    from music_generation_tpu_torch.compat import from_jax as fj
+    if family == "seq2seq":
+        return lambda tree: {
+            f"{k}.{n}": v for k in model
+            for n, v in fj.seq2seq_state_dict_from_flax(
+                tree[k], model[k].cfg).items()}
+    if family == "telemelody":
+        return lambda tree: {
+            f"{k}.{n}": v for k in model
+            for n, v in fj.state_dict_from_flax(
+                tree[k], model[k], fj.melody_rename).items()}
+    rename = {"t5": fj._suffixed_rename, "gpt2": fj._suffixed_rename,
+              "duration_sdp": lambda n: n}.get(family, fj.melody_rename)
+    return lambda tree: fj.state_dict_from_flax(tree, model, rename)
+
+
+def convert_seq_step(step_dir: str, out: str, family: str,
+                     tiny: bool = False, lr: float = 3e-4) -> str:
+    """A JAX train.seq step directory of ``family`` -> <out>/<family>/
+    step_<n>.pt (save_seq_checkpoint's layout); returns the file."""
+    import torch
+
+    from music_generation_tpu_torch.train.seq import (build_family,
+                                                      save_seq_checkpoint)
+    from music_generation_tpu_torch.train.seq_losses import SeqOptimizer
+
+    raw = _restore_orbax(step_dir)
+    model, _, _ = build_family(family, tiny, None, device="cpu")
+    mapper = _seq_mapper(family, model)
+    missing, unknown = model.load_state_dict(mapper(raw["params"]),
+                                             strict=False)
+    params = dict(model.named_parameters())
+    if unknown or any(n in params for n in missing):
+        raise ValueError(f"{family}: unknown {unknown}, missing {missing}")
+    opt = SeqOptimizer(model.parameters(), lr)
+    step = _step_of(step_dir, raw["step"])
+    try:
+        _, state, _, _ = _adam_state(raw["opt_state"], mapper,
+                                     list(params.values()), list(params))
+        opt.load_state_dict({"state": state, "param_groups":
+                             opt.state_dict()["param_groups"]})
+    except (ValueError, KeyError) as e:
+        print(f"{family}: the optimizer state does not map ({e}); params "
+              f"and step only, with a fresh optimizer")
+    path = os.path.join(out, family, f"step_{step}.pt")
+    save_seq_checkpoint(path, model, opt, step)
+    print(f"wrote {path}")
+    return path
+
+
 def import_pth(files: list, out: str, tiny: bool = False,
                nsf: bool = False, f0_residual: bool = False,
                autoencoder: bool = True) -> list:
@@ -144,6 +320,11 @@ def main(argv=None):
     src.add_argument("--jax-dir", help="JAX orbax pipeline directory")
     src.add_argument("--pth", action="append",
                      help="reference VISinger .pth (repeatable)")
+    src.add_argument("--jax-step", help="JAX GAN trainer step_<n> directory")
+    src.add_argument("--jax-seq-step",
+                     help="JAX train.seq step_<n> directory (with --family)")
+    p.add_argument("--family", default=None,
+                   help="train.seq family of --jax-seq-step")
     p.add_argument("--out", required=True,
                    help="port pipeline directory to write")
     p.add_argument("--variant", default="svs_v6_multispeaker",
@@ -166,8 +347,16 @@ def main(argv=None):
         p.error("reference .pth files carry the HiFi-GAN decoder")
     if args.nsf and args.decoder != "hifigan":
         p.error("--nsf requires --decoder hifigan")
+    if bool(args.jax_seq_step) != bool(args.family):
+        p.error("--jax-seq-step and --family go together")
     try:
-        if args.jax_dir:
+        if args.jax_step:
+            convert_gan_step(args.jax_step, args.out, args.tiny, args.decoder,
+                             args.nsf, args.f0_residual)
+        elif args.jax_seq_step:
+            convert_seq_step(args.jax_seq_step, args.out, args.family,
+                             args.tiny)
+        elif args.jax_dir:
             import_jax_dir(args.jax_dir, args.out, args.variant,
                            args.decoder, args.tiny, args.nsf,
                            args.f0_residual, not args.no_autoencoder)
