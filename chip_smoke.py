@@ -8,6 +8,19 @@ Phases, each fatal on failure (no exception is caught):
   2. kernel   maximum_path (CUDA) vs maximum_path_torch (plain) on the card
               at the training shape [8, 480, 64], bit for bit, both timed;
               two edge shapes held bit for bit too
+ 2b. shapes   maximum_path through the entry point at the shapes the warp
+              variant refuses and the JAX package aligns, [2, 20000, 64]
+              (decision bits past the warp variant's shared memory),
+              [4, 8000, 256] (ragged, one item of more phones than
+              frames) and [1, 3000, 1500] (Tx > 1024), then [8, 480, 64]
+              (the warp variant): one launch each, the variant mas_plan
+              picks, the plain version never; each path bit for bit the
+              plain version's, one token per valid frame; kernel ms (CUDA
+              events, median of 10 warm runs), the plain version's ms (one
+              run), the bound (bytes or the function's dependent chain;
+              the chosen design's chain beside it); then the wide
+              variant alone at every K, 1 to 8 warps and two strips
+              against the plain version
   3. align    full-width VISinger (SVSConfig()) MAS inputs -> the kernel via
               mas_duration_targets, held against the plain version
   4. serve    the port's HTTP server at full width (MelodyConfig(),
@@ -178,15 +191,16 @@ Phases, each fatal on failure (no exception is caught):
               exported file and the e2e demo's served melody, each JSON
               read back
 Launch counts are zeroed just before each main path and read just after
-it: phases 3-4 (the served slices), phase 5 (the variants, which align
+it: phase 2b (maximum_path at four shapes), phases 3-4 (the served slices), phase 5 (the variants, which align
 nothing: no MAS launch, kernel or plain), phase 8 (training), each
 decoder's training steps in phase 10, phase 11's training steps and its
 served configurations, phase 12 (which aligns nothing), phase 13's
 served paths (none) and its training step, phase 14's two corpus
 training runs and its served v1 paths (none), phase 15's families
 (none) and its --bf16 CLI run, and phase 16's one-rank trainer (in its
-subprocess). The kernels line reports the launches of phases 8, 11, 13,
-14, 15 and 16's training. The lyric LMs, TeleMelody and the
+subprocess). The kernels line reports the launches of phase 2b and of
+phases 8, 11, 13, 14, 15 and 16's training (its "shapes" holds phase 2b's
+rows). The lyric LMs, TeleMelody and the
 other train.seq families launch no hand-written kernel. All phases run in
 full float32 (TF32 is off for matmuls and cuDNN convolutions), except
 phase 11's --decoder-bf16 decoders and phase 15's --bf16 steps, which
@@ -218,6 +232,25 @@ MAS_SHAPE = (8, 480, 64)          # B, Ty (frames), Tx (phones)
 # not a multiple of a warp,
 # and the frame cap with enough phones to need > 48 KB of shared memory
 EDGE_SHAPES = ((4, 60, 20), (4, 50, 45), (3, 1984, 200), (2, 1100, 1000))
+# phase 2b: maximum_path at shapes the warp variant refuses, through the
+# entry point (the wide variant), and the training shape (the warp
+# variant): decision bits past the warp variant's shared memory at 64
+# phones; ragged, 256 phones, with an item of more phones than frames;
+# Tx > 1024
+MAS_LONG_SHAPES = ((2, 20000, 64), (4, 8000, 256), (1, 3000, 1500),
+                   MAS_SHAPE)
+# ... and the wide variant alone (launched directly, also where the warp
+# variant would do) at every K, 1 to 8 warps, and two strips
+WIDE_EDGE_SHAPES = ((4, 60, 20), (4, 50, 45), (3, 200, 100), (2, 150, 200),
+                    (2, 120, 400), (2, 1100, 1000), (3, 1761, 1024),
+                    (2, 300, 1025), (2, 200, 2100), (2, 8500, 8400))
+# the dependent chain of one item, in SM cycles per link (derived, not
+# measured): a row is a shuffle (~24), fmaxf and fadd (4 each) and a
+# select; a backtrace step is a dependent shared-memory load (~30) and a
+# shift, compare and select; the wide variant's per-row hand-over is a
+# shared store, a barrier and a shared load
+MAS_ROW_CYCLES, MAS_STEP_CYCLES, MAS_BARRIER_CYCLES = 45, 40, 60
+SM_CLOCK_HZ = 1.98e9              # H100 SXM boost clock
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12                # H100 SXM float32 outside tensor cores
 BENCH_SENTENCES = ["小小的天有大大的梦想", "重重的壳裹着轻轻的仰望",
@@ -322,6 +355,129 @@ def phase_kernel(device):
             "max_abs_diff": diff, "ms": kernel_ms, "kernel_ms": kernel_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None}
+
+
+def long_case(device, shape, seed=SEED):
+    """MAS inputs for phase 2b: item 0 full, item 1 with more phones than
+    frames when there are four items (no monotonic path: the same
+    deterministic answer from both versions), the rest random lengths
+    with t_y >= t_x."""
+    import torch
+    b, t_y, t_x = shape
+    gen = torch.Generator(device).manual_seed(seed)
+    neg_cent = torch.randn(shape, generator=gen, device=device) * 10.0
+    rng = np.random.RandomState(seed)
+    lengths = [(t_y, t_x)]
+    if b == 4:
+        lengths.append((t_x // 2, t_x))
+    while len(lengths) < b:
+        tx = int(rng.randint(2, t_x + 1))
+        lengths.append((int(rng.randint(tx, t_y + 1)), tx))
+    mask = torch.zeros(shape, device=device)
+    for i, (ty, tx) in enumerate(lengths):
+        mask[i, :ty, :tx] = 1.0
+    return neg_cent, mask, lengths
+
+
+def mas_chain_bound_ms(shape, lengths) -> tuple[float, str]:
+    """Least time for phase 2b's call, from the function alone: the larger
+    of the bytes (inputs read once, the path written once) at the memory
+    rate and the dependent chain of the longest item of this data, its
+    rows and its backtrace steps."""
+    b, t_y, t_x = shape
+    rows = max(ty for ty, _ in lengths)
+    chain = rows * (MAS_ROW_CYCLES + MAS_STEP_CYCLES) / SM_CLOCK_HZ
+    by_bytes = 3 * b * t_y * t_x * 4 / HBM_BYTES_PER_S
+    return ((by_bytes * 1e3, "bytes") if by_bytes >= chain
+            else (chain * 1e3, "chain"))
+
+
+def mas_design_chain_ms(plan, lengths) -> float:
+    """The chain of the design mas_plan picks, not of the function: the
+    bound's rows times the strips, plus the per-row hand-over barrier
+    where the block has several warps. Shown beside the bound, never as
+    it."""
+    rows = max(ty for ty, _ in lengths)
+    row = MAS_ROW_CYCLES + (MAS_BARRIER_CYCLES if plan.warps > 1 else 0)
+    return (rows * plan.strips * row + rows * MAS_STEP_CYCLES) \
+        / SM_CLOCK_HZ * 1e3
+
+
+def phase_mas_shapes(device) -> dict:
+    """Phase 2b: maximum_path at MAS_LONG_SHAPES through the entry point,
+    counts zeroed just before and read just after (one launch each, the
+    variant mas_plan picks, never the plain version); each path bit for bit
+    the plain version's and one token per valid frame; then the wide
+    variant alone at WIDE_EDGE_SHAPES against the plain version. Times: the
+    kernel's CUDA-event median over warm runs, the plain version's single
+    run, the bound."""
+    import torch
+    from music_generation_tpu_torch.ops import (mas_plan, maximum_path,
+                                                maximum_path_torch)
+    from music_generation_tpu_torch.ops.monotonic_align import (launch,
+                                                                wide_plan)
+    t0 = time.time()
+    cases = [long_case(device, shape, SEED + 5) if shape != MAS_SHAPE
+             else mas_case(device) for shape in MAS_LONG_SHAPES]
+    maximum_path.kernel_launches = maximum_path.wide_launches = 0
+    maximum_path.plain_calls = 0
+    paths = [maximum_path(nc, m) for nc, m, _ in cases]
+    torch.cuda.synchronize()
+    launches, wide = maximum_path.kernel_launches, maximum_path.wide_launches
+    n_wide = sum(mas_plan(*s[1:]).variant == "wide" for s in MAS_LONG_SHAPES)
+    if (launches, wide, maximum_path.plain_calls) != (
+            len(MAS_LONG_SHAPES), n_wide, 0):
+        raise AssertionError(f"phase 2b: {launches} launches ({wide} wide, "
+                             f"{maximum_path.plain_calls} plain), expected "
+                             f"{len(MAS_LONG_SHAPES)} ({n_wide} wide, 0)")
+    rows = []
+    for shape, (nc, m, lengths), got in zip(MAS_LONG_SHAPES, cases, paths):
+        plan = mas_plan(*shape[1:])
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = maximum_path_torch(nc, m)
+        end.record()
+        end.synchronize()
+        plain_ms = start.elapsed_time(end)
+        if not torch.equal(got, want):
+            bad = (got != want).any(-1).nonzero()[:4].tolist()
+            raise AssertionError(f"maximum_path ({plan.variant}) disagrees "
+                                 f"with the plain version at {list(shape)}"
+                                 f": [item, row] {bad}")
+        if not torch.equal(got.sum(-1), m[:, :, 0]):
+            raise AssertionError(f"path at {list(shape)} is not one token "
+                                 f"per valid frame")
+        ms = cuda_ms(lambda: maximum_path(nc, m), reps=10)
+        bound_ms, bound_by = mas_chain_bound_ms(shape, lengths)
+        design_ms = mas_design_chain_ms(plan, lengths)
+        rows.append({"shape": list(shape), "variant": plan.variant,
+                     "k": plan.k, "warps": plan.warps, "strips": plan.strips,
+                     "smem_bytes": plan.smem_bytes,
+                     "scratch_bytes": shape[0] * plan.scratch_bytes,
+                     "lengths": [list(x) for x in lengths[:4]],
+                     "launches": 1, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "design_chain_ms": design_ms})
+        log(f"phase 2b: maximum_path == plain at {list(shape)} "
+            f"({plan.variant}, K={plan.k}, {plan.warps} warps, "
+            f"{plan.strips} strips): kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.1f} ms (one run), bound {bound_ms:.4f} ms "
+            f"({bound_by}); the design's chain {design_ms:.4f} ms")
+        del want
+    del cases, paths
+    for shape in WIDE_EDGE_SHAPES:
+        nc, m, _ = mas_case(device, shape, SEED + 3)
+        got = torch.empty_like(nc)
+        launch(nc, m, got, wide_plan(*shape[1:]))
+        if not torch.equal(got, maximum_path_torch(nc, m)):
+            raise AssertionError(f"the wide variant disagrees with the "
+                                 f"plain version at {list(shape)}")
+    log(f"phase 2b: the wide variant alone == plain at "
+        f"{[list(s) for s in WIDE_EDGE_SHAPES]}; {time.time() - t0:.1f} s")
+    return {"shapes": rows, "launches": launches,
+            "wide_edge_shapes": [list(s) for s in WIDE_EDGE_SHAPES],
+            "seconds": time.time() - t0}
 
 
 def phase_align(device):
@@ -1236,6 +1392,8 @@ def phases_before_train(device) -> dict:
     import torch
     from music_generation_tpu_torch.ops import maximum_path
     record = phase_kernel(device)
+    record["shapes"] = phase_mas_shapes(device)
+    torch.cuda.empty_cache()
 
     from music_generation_tpu_torch.models.lyrics import build_lyric_generator
     t0 = time.time()
@@ -3882,7 +4040,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     parallel = phase_parallel_and_tools(device, train)
     record = earlier.pop("record")
-    record["launches"] = (train["mas_launches"]
+    record["launches"] = (record["shapes"]["launches"]
+                          + train["mas_launches"]
                           + f0_variants["train"]["mas_launches"]
                           + v1_model["train_plain"]["mas_launches"]
                           + corpus_v1["corpus"]["mas_launches"]

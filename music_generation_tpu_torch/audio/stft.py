@@ -75,12 +75,19 @@ def reflect_pad(y: torch.Tensor, pad: int) -> torch.Tensor:
     return y[..., idx]
 
 
+def frame_signal(y: torch.Tensor, frame_length: int, hop: int
+                 ) -> torch.Tensor:
+    """[B, S] -> [B, n_frames, frame_length], n_frames = 1 + (S -
+    frame_length) // hop (no centre padding): a view by unfold."""
+    return y.unfold(-1, frame_length, hop)
+
+
 def spectrogram(y: torch.Tensor, n_fft: int = 1024, hop: int = 256,
                 win_length: int = 1024) -> torch.Tensor:
     """Linear magnitude spectrogram. y: [B, S] in [-1, 1].
     Returns [B, n_frames, n_fft//2+1]; n_frames = S // hop (after padding)."""
     y = reflect_pad(y, (n_fft - hop) // 2)
-    frames = y.unfold(-1, n_fft, hop)
+    frames = frame_signal(y, n_fft, hop)
     window = torch.from_numpy(hann_window(win_length)).to(y.device,
                                                            y.dtype)
     spec = torch.fft.rfft(frames * window, n=n_fft, dim=-1)

@@ -43,6 +43,10 @@ def same_pad(kernel_size: int, dilation: int = 1) -> tuple[int, int]:
     return (span // 2, span - span // 2)
 
 
+def causal_pad(kernel_size: int, dilation: int = 1) -> tuple[int, int]:
+    return ((kernel_size - 1) * dilation, 0)
+
+
 def _at_dtype(weight: torch.Tensor, bias: Optional[torch.Tensor],
               dtype: torch.dtype):
     """A layer's effective weight and bias in its input's dtype. Parameters
@@ -61,16 +65,18 @@ def lecun_normal_(w: torch.Tensor, fan_in: int, scale: float = 1.0):
 
 
 class Conv1d(nn.Module):
-    """1-D conv on [B, C, T] with 'same' padding (JAX split for even spans),
-    optional channel groups and optional weight norm (kernel, g)."""
+    """1-D conv on [B, C, T] with 'same' padding (JAX split for even spans)
+    or, with ``causal``, all of the span on the left; optional channel
+    groups and optional weight norm (kernel, g)."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 1, stride: int = 1, dilation: int = 1,
                  groups: int = 1, bias: bool = True,
-                 weight_norm: bool = False, init_scale: float = 1.0):
+                 weight_norm: bool = False, init_scale: float = 1.0,
+                 causal: bool = False):
         super().__init__()
         self.stride, self.dilation, self.groups = stride, dilation, groups
-        self.pad = same_pad(kernel_size, dilation)
+        self.pad = (causal_pad if causal else same_pad)(kernel_size, dilation)
         self.weight = nn.Parameter(
             torch.empty(out_channels, in_channels // groups, kernel_size))
         self.g = nn.Parameter(torch.empty(out_channels)) if weight_norm \
@@ -165,15 +171,18 @@ class LayerNorm1d(nn.LayerNorm):
 
 class FFN(nn.Module):
     """Conv feed-forward on [B, T, C]: conv -> relu -> conv, masked
-    (attentions.FFN of the reference)."""
+    (attentions.FFN of the reference); ``causal`` pads both convs on the
+    left only."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  filter_channels: int, kernel_size: int,
-                 dropout_rate: float = 0.0):
+                 dropout_rate: float = 0.0, causal: bool = False):
         super().__init__()
         self.dropout_rate = dropout_rate
-        self.conv_1 = Conv1d(in_channels, filter_channels, kernel_size)
-        self.conv_2 = Conv1d(filter_channels, out_channels, kernel_size)
+        self.conv_1 = Conv1d(in_channels, filter_channels, kernel_size,
+                             causal=causal)
+        self.conv_2 = Conv1d(filter_channels, out_channels, kernel_size,
+                             causal=causal)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor,
                 deterministic: bool = True,
@@ -217,3 +226,32 @@ class DDSConv(nn.Module):
             y = F.gelu(norm2(conv_ntc(pw, y)), approximate="tanh")
             x = x + dropout(y, self.dropout_rate, deterministic, generator)
         return x * mask
+
+
+class ConvReluNorm(nn.Module):
+    """Conv -> LayerNorm -> ReLU -> dropout, ``n_layers`` times, then a
+    zero-initialised 1x1 ``proj`` added to the input: (x + proj) * mask, on
+    [B, T, C] (the JAX package's ConvReluNorm; out_channels must equal
+    in_channels for the residual)."""
+
+    def __init__(self, in_channels: int, hidden_channels: int,
+                 out_channels: int, kernel_size: int, n_layers: int,
+                 dropout_rate: float = 0.0):
+        super().__init__()
+        self.dropout_rate = dropout_rate
+        self.conv = nn.ModuleList(
+            Conv1d(in_channels if i == 0 else hidden_channels,
+                   hidden_channels, kernel_size) for i in range(n_layers))
+        self.norm = nn.ModuleList(LayerNorm1d(hidden_channels)
+                                  for _ in range(n_layers))
+        self.proj = Conv1d(hidden_channels, out_channels, 1, init_scale=0.0)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        h = x
+        for conv, norm in zip(self.conv, self.norm):
+            h = norm(conv_ntc(conv, h * mask))
+            h = dropout(torch.relu(h), self.dropout_rate, deterministic,
+                        generator)
+        return (x + conv_ntc(self.proj, h)) * mask

@@ -25,6 +25,16 @@ def feature_mask(lengths: torch.Tensor, max_length: int,
     return sequence_mask(lengths, max_length)[..., None].to(dtype)
 
 
+def generate_path(durations: torch.Tensor, t_y: int) -> torch.Tensor:
+    """Monotonic alignment path from integer durations: [B, T_x] ->
+    [B, T_y, T_x] float32, frame f on the token whose cumulative span
+    holds it."""
+    cum = torch.cumsum(durations, dim=-1)
+    frame = torch.arange(t_y, device=durations.device)[None, :, None]
+    path = (frame < cum[:, None, :]).float()
+    return path - torch.nn.functional.pad(path, (1, 0))[:, :, :-1]
+
+
 def expand_by_durations(x: torch.Tensor, durations: torch.Tensor, t_y: int
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """Length-regulate token features to frames by integer durations.

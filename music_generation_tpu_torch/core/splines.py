@@ -1,16 +1,16 @@
 """Piecewise rational-quadratic spline transforms (neural spline flows).
 
-Twin of music_generation_tpu/core/splines.py for what ConvFlow, inside
-the stochastic duration predictor, runs: the JAX package's
-piecewise_rational_quadratic_transform(tails="linear"), that is
-unconstrained_rational_quadratic_spline (identity outside [-tail_bound,
-tail_bound]). Every element takes both branches and a ``torch.where``
+Twin of music_generation_tpu/core/splines.py. ConvFlow, inside the
+stochastic duration predictor, runs piecewise_rational_quadratic_transform
+(tails="linear"), that is unconstrained_rational_quadratic_spline
+(identity outside [-tail_bound, tail_bound]). Every element takes both branches and a ``torch.where``
 picks one, so no shape depends on the data.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -127,3 +127,19 @@ def unconstrained_rational_quadratic_spline(
     return (torch.where(inside, out_in, inputs),
             torch.where(inside, ld_in, torch.zeros_like(ld_in)))
 
+
+
+def piecewise_rational_quadratic_transform(
+        inputs: torch.Tensor, unnormalized_widths: torch.Tensor,
+        unnormalized_heights: torch.Tensor,
+        unnormalized_derivatives: torch.Tensor, inverse: bool = False,
+        tails: Optional[str] = None, tail_bound: float = 5.0):
+    """The spline on [0, 1], or with ``tails="linear"`` the unconstrained
+    one with identity tails outside [-tail_bound, tail_bound]."""
+    if tails == "linear":
+        return unconstrained_rational_quadratic_spline(
+            inputs, unnormalized_widths, unnormalized_heights,
+            unnormalized_derivatives, inverse=inverse, tail_bound=tail_bound)
+    return rational_quadratic_spline(
+        inputs, unnormalized_widths, unnormalized_heights,
+        unnormalized_derivatives, inverse=inverse)

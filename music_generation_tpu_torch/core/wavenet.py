@@ -17,6 +17,16 @@ from torch import nn
 from .layers import Conv1d
 
 
+def gated_activation(x_in: torch.Tensor, g_l: Optional[torch.Tensor],
+                     channels: int, dim: int = -1) -> torch.Tensor:
+    """tanh of the first ``channels`` of x_in + g_l along ``dim`` times the
+    sigmoid of the rest (channels-last by default, as the JAX package's;
+    ``g_l`` None adds nothing)."""
+    acts = x_in if g_l is None else x_in + g_l
+    first, second = acts.split([channels, acts.shape[dim] - channels], dim)
+    return torch.tanh(first) * torch.sigmoid(second)
+
+
 class WaveNet(nn.Module):
     def __init__(self, hidden_channels: int, kernel_size: int,
                  dilation_rate: int, n_layers: int, gin_channels: int = 0):
@@ -49,10 +59,9 @@ class WaveNet(nn.Module):
         last = len(self.in_layers) - 1
         for i, (conv_in, res_skip) in enumerate(zip(self.in_layers,
                                                     self.res_skip_layers)):
-            x_in = conv_in(x)
-            if g_all is not None:
-                x_in = x_in + g_all[:, i * 2 * h:(i + 1) * 2 * h]
-            acts = torch.tanh(x_in[:, :h]) * torch.sigmoid(x_in[:, h:])
+            g_l = (None if g_all is None
+                   else g_all[:, i * 2 * h:(i + 1) * 2 * h])
+            acts = gated_activation(conv_in(x), g_l, h, dim=1)
             rs = res_skip(acts)
             if i < last:
                 x = (x + rs[:, :h]) * m

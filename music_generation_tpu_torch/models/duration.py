@@ -3,6 +3,8 @@
 Twins of music_generation_tpu/models/duration.py:
 - DurationPredictor: the SVS model's 3-conv sigmoid head predicting each
   phone's fraction of its note duration.
+- LogDurationPredictor: the same trunk with a linear output (log-durations)
+  and optional conditioning ``g``.
 - StochasticDurationPredictor: the VITS normalising-flow duration model of
   the SDP melody variant: sampling, and the NLL it trains on.
 Layout [B, T, C] features, [B, T, 1] masks.
@@ -33,16 +35,45 @@ class DurationPredictor(nn.Module):
             LayerNorm1d(filter_channels) for _ in range(3))
         self.proj = Conv1d(filter_channels, 1, 1)
 
+    def _trunk(self, x, mask, deterministic, generator) -> torch.Tensor:
+        for conv, norm in zip(self.conv, self.norm):
+            x = norm(torch.relu(conv_ntc(conv, x * mask)))
+            x = dropout(x, self.dropout_rate, deterministic, generator)
+        return conv_ntc(self.proj, x * mask)
+
     def forward(self, x: torch.Tensor, mask: torch.Tensor,
                 deterministic: bool = True,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """-> [B, T] fraction in (0, 1)."""
-        x = x.detach()
-        for conv, norm in zip(self.conv, self.norm):
-            x = norm(torch.relu(conv_ntc(conv, x * mask)))
-            x = dropout(x, self.dropout_rate, deterministic, generator)
-        x = conv_ntc(self.proj, x * mask)
+        x = self._trunk(x.detach(), mask, deterministic, generator)
         return (torch.sigmoid(x) * mask)[..., 0]
+
+
+class LogDurationPredictor(DurationPredictor):
+    """DurationPredictor's trunk with a linear output: log-durations [B, T],
+    masked. With ``gin_channels`` > 0 a 1x1 ``cond`` conv of the
+    conditioning g [B, 1 or T, gin] is added to the (detached) input."""
+
+    def __init__(self, in_channels: int, filter_channels: int,
+                 kernel_size: int, dropout_rate: float = 0.0,
+                 gin_channels: int = 0):
+        super().__init__(in_channels, filter_channels, kernel_size,
+                         dropout_rate)
+        self.cond = (Conv1d(gin_channels, in_channels, 1) if gin_channels
+                     else None)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor,
+                g: Optional[torch.Tensor] = None, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = x.detach()
+        if g is not None:
+            if self.cond is None:
+                raise ValueError("conditioning g given to a "
+                                 "LogDurationPredictor built with "
+                                 "gin_channels=0")
+            x = x + conv_ntc(self.cond, g.detach())
+        x = self._trunk(x, mask, deterministic, generator)
+        return x[..., 0] * mask[..., 0]
 
 
 class StochasticDurationPredictor(nn.Module):

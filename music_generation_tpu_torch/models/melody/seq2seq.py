@@ -174,6 +174,19 @@ class Seq2SeqModel(nn.Module):
         self.encoder = Seq2SeqEncoder(cfg)
         self.decoder = Seq2SeqDecoder(cfg)
 
+    def encode(self, ids, lengths=None):
+        """(outputs, final carry) of ids [B, T]; without ``lengths`` every
+        row runs to T, as flax's RNN without seq_lengths."""
+        if lengths is None:
+            lengths = torch.full((ids.shape[0],), ids.shape[1])
+        return self.encoder(ids, lengths)
+
+    def decode_step(self, token, encoder_output, state, enc_mask=None):
+        return self.decoder.step(token, encoder_output, state, enc_mask)
+
+    def init_decoder_state(self, encoder_hidden):
+        return self.decoder.init_state(encoder_hidden)
+
     def forward(self, src_ids: torch.Tensor, tgt_ids: torch.Tensor
                 ) -> torch.Tensor:
         """Teacher-forced forward -> logprobs [B, T_tgt, V], with the same

@@ -130,6 +130,10 @@ class SVSConfig:
     f0_residual: bool = False
 
     @property
+    def hop_seconds(self) -> float:
+        return self.hop_length / self.sampling_rate
+
+    @property
     def segment_frames(self) -> int:
         return self.segment_size // self.hop_length
 

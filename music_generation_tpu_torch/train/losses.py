@@ -136,3 +136,11 @@ def discriminator_adv_loss(disc_real_outputs, disc_gen_outputs, mesh=None):
         loss = (loss + batch_mean((1.0 - dr) ** 2, mesh)
                 + batch_mean(dg ** 2, mesh))
     return loss
+
+
+def mas_duration_targets(z_p, m_p, logs_p, x_mask, y_mask):
+    """MAS duration targets (frames per phone) with log-scales clamped to
+    +-LOGS_CLAMP: ops.mas_duration_targets, re-exported as the JAX package
+    does (the model's training forward calls the ops version itself)."""
+    from ..ops import mas_duration_targets as mas
+    return mas(z_p, m_p, logs_p, x_mask, y_mask, logs_clamp=LOGS_CLAMP)

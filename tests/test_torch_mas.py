@@ -3,7 +3,9 @@
 The plain version maximum_path_torch is held bit for bit against the numpy
 oracle and the lax implementation on ragged batches, as
 tests/test_monotonic_align.py holds the Pallas kernel; the CUDA kernel is
-held against the plain version on the card by chip_smoke.py.
+held against the plain version on the card by chip_smoke.py. mas_plan, the
+wrapper's choice of kernel variant with its shared memory and scratch, is
+checked here at the limits of each variant.
 """
 
 import jax
@@ -15,8 +17,10 @@ import torch
 from music_generation_tpu.core.masking import feature_mask
 from music_generation_tpu.ops import (mas_duration_targets as j_targets,
                                       maximum_path_jax, maximum_path_numpy)
-from music_generation_tpu_torch.ops import (mas_duration_targets,
+from music_generation_tpu_torch.ops import (mas_duration_targets, mas_plan,
                                             maximum_path, maximum_path_torch)
+from music_generation_tpu_torch.ops.monotonic_align import (
+    MAX_WARPS, SMEM_BYTES, WIDE_SMEM_BYTES, wide_plan)
 from torch_port_util import t
 
 
@@ -110,3 +114,101 @@ def test_phase_cycles_tool_still_instruments_the_kernel():
     src = tool.instrumented_source()
     assert src.count("clock64()") == 5
     assert "long long* clk" in src and "s, clk);" in src
+
+
+# at each K of the warp variant: Tx, the largest Ty it takes (4 * Ty *
+# (K + 1) bytes of shared memory within 232,448), and the wide variant's K
+# and warps one row past it
+WARP_LIMITS = {1: (20, 29056, 1, 1), 2: (64, 19370, 1, 2),
+               4: (128, 11622, 1, 4), 8: (256, 6456, 1, 8),
+               16: (512, 3418, 2, 8), 32: (1024, 1760, 4, 8)}
+
+
+@pytest.mark.parametrize("k", sorted(WARP_LIMITS))
+def test_plan_warp_variant_up_to_its_shared_memory(k):
+    t_x, t_y, wide_k, wide_warps = WARP_LIMITS[k]
+    plan = mas_plan(t_y, t_x)
+    assert (plan.variant, plan.k, plan.warps, plan.strips) == ("warp", k, 1, 1)
+    assert plan.smem_bytes == 4 * t_y * (k + 1) <= SMEM_BYTES
+    assert plan.scratch_bytes == 0
+    # one row more: the wide variant, the bits in the scratch
+    plan = mas_plan(t_y + 1, t_x)
+    words = -(-t_x // 32)
+    assert (plan.variant, plan.k, plan.warps, plan.strips) == (
+        "wide", wide_k, wide_warps, 1)
+    assert plan.smem_bytes == WIDE_SMEM_BYTES <= SMEM_BYTES
+    assert plan.scratch_bytes == 4 * (t_y + 1) * (words + 1)
+
+
+@pytest.mark.parametrize("t_y,t_x,want", [
+    # chip_smoke.py's phase 2b shapes
+    (480, 64, ("warp", 2, 1, 1, 5760, 0)),
+    (20000, 64, ("wide", 1, 2, 1, WIDE_SMEM_BYTES, 4 * 20000 * 3)),
+    (8000, 256, ("wide", 1, 8, 1, WIDE_SMEM_BYTES, 4 * 8000 * 9)),
+    (3000, 1500, ("wide", 8, 6, 1, WIDE_SMEM_BYTES, 4 * 3000 * 48)),
+    # the warp variant's column limit, and one more
+    (1760, 1024, ("warp", 32, 1, 1, 232320, 0)),
+    (100, 1025, ("wide", 8, 5, 1, WIDE_SMEM_BYTES, 4 * 100 * 34)),
+    # K doubles where 8 warps no longer hold the row
+    (100, 2048, ("wide", 8, 8, 1, WIDE_SMEM_BYTES, 4 * 100 * 65)),
+    (100, 2049, ("wide", 16, 5, 1, WIDE_SMEM_BYTES, 4 * 100 * 66)),
+    # eight warps make one strip of 8192 columns; past it, strips and the
+    # two edge columns
+    (100, 8192, ("wide", 32, 8, 1, WIDE_SMEM_BYTES, 4 * 100 * 257)),
+    (100, 8193, ("wide", 32, 8, 2, WIDE_SMEM_BYTES, 4 * 100 * 260)),
+    (20000, 16384, ("wide", 32, 8, 2, WIDE_SMEM_BYTES, 4 * 20000 * 515)),
+    (50, 100000, ("wide", 32, 8, 13, WIDE_SMEM_BYTES, 4 * 50 * 3128)),
+])
+def test_plan_takes_every_shape(t_y, t_x, want):
+    plan = mas_plan(t_y, t_x)
+    assert (plan.variant, plan.k, plan.warps, plan.strips, plan.smem_bytes,
+            plan.scratch_bytes) == want
+    assert plan.smem_bytes <= SMEM_BYTES
+    assert plan.warps * 32 * plan.k * plan.strips >= t_x
+
+
+def test_plan_wide_on_request():
+    """The wide variant where the warp variant would do (chip_smoke.py and
+    tools/torch_mas_timing.py run it alone): wide_plan at its default K is
+    the plan mas_plan gives where the warp variant does not fit."""
+    plan = wide_plan(480, 64)
+    assert (plan.variant, plan.k, plan.warps, plan.strips) == ("wide", 1, 2, 1)
+    assert plan.scratch_bytes == 4 * 480 * 3
+    for t_y, t_x in [(20000, 64), (3000, 1500), (100, 2049), (50, 100000)]:
+        assert wide_plan(t_y, t_x) == mas_plan(t_y, t_x)
+
+
+def test_wide_smem_matches_the_kernel_source():
+    """WIDE_SMEM_BYTES and MAX_WARPS restate csrc/monotonic_align.cu's
+    kWideSmem and kMaxWarps; read them from the source."""
+    import re
+    from pathlib import Path
+    src = (Path(__file__).resolve().parents[1] / "music_generation_tpu_torch"
+           / "csrc" / "monotonic_align.cu").read_text()
+    const = {name: int(value) for name, value in re.findall(
+        r"constexpr int (kMaxWarps|kStageRows) = (\d+);", src)}
+    assert "constexpr int kStageWords = kStageRows / 32 + 1;" in src
+    assert "constexpr int kWideHead = 4 * kMaxWarps + 1;" in src
+    assert ("constexpr int kWideSmem = (kWideHead + kStageRows * "
+            "kStageWords) * 4;") in src
+    rows = const["kStageRows"]
+    assert const["kMaxWarps"] == MAX_WARPS
+    assert WIDE_SMEM_BYTES == (4 * MAX_WARPS + 1 + rows * (rows // 32 + 1)) * 4
+
+
+def test_plain_matches_lax_past_the_warp_variant():
+    """The plain version, which chip_smoke.py holds the kernel to on the
+    card, against the lax implementation at a shape the warp variant
+    refuses (Tx > 1024), ragged, with an item of more tokens than frames."""
+    b, t_y, t_x = 3, 1200, 1100
+    rng = np.random.RandomState(21)
+    neg_cent = (10.0 * rng.randn(b, t_y, t_x)).astype(np.float32)
+    mask = np.zeros((b, t_y, t_x), np.float32)
+    for i, (ty, tx) in enumerate([(1200, 1100), (700, 1100), (1150, 480)]):
+        mask[i, :ty, :tx] = 1.0
+    assert mas_plan(t_y, t_x).variant == "wide"
+    got = maximum_path_torch(t(neg_cent), t(mask)).numpy()
+    want = np.asarray(maximum_path_jax(jnp.asarray(neg_cent),
+                                       jnp.asarray(mask)))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got.sum(-1), mask[:, :, 0])

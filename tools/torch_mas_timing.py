@@ -2,9 +2,19 @@
 """Time the port's MAS kernel (music_generation_tpu_torch maximum_path) on
 one GPU and show what bounds it.
 
-    python3 tools/torch_mas_timing.py
+    python3 tools/torch_mas_timing.py [--shape B,TY,TX ...]
 
-Prints the card's name and power limit, then one JSON object:
+With --shape (repeatable), for each shape, on chip_smoke.py's ragged
+inputs (long_case): the variant maximum_path picks (mas_plan) and
+wrapper_ms, maximum_path() itself; then each variant alone (the warp
+variant where its shared memory takes the shape, the wide variant always,
+and with --k-sweep the wide variant at every K from 1 to 32, each with the
+warps its row needs, up to 8): bare_ms, its ctypes launch on buffers
+allocated once, 10 back-to-back launches per timing; and whether every
+variant's path is the same.
+
+Without --shape, prints the card's name and power limit, then one JSON
+object:
   - wrapper_ms: maximum_path() at the training shape [8, 480, 64];
   - kernel_ms: the bare ctypes launch on the same inputs (no Python checks
     or allocation), 10 back-to-back launches per timing;
@@ -17,6 +27,7 @@ CUDA-event times are medians of 20 warm runs. Exits non-zero without a GPU.
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -33,7 +44,73 @@ TY_SWEEP = (120, 480, 960, 1920)
 BATCH_SWEEP = (2, 8, 64)
 
 
-def main() -> int:
+def shape_arg(text: str) -> tuple:
+    shape = tuple(int(v) for v in text.split(","))
+    if len(shape) != 3 or min(shape) < 1:
+        raise argparse.ArgumentTypeError(f"B,TY,TX expected, got {text!r}")
+    return shape
+
+
+def time_shapes(dev, shapes, k_sweep: bool = False) -> list:
+    """Each shape's wrapper time and each variant's bare launch time."""
+    from music_generation_tpu_torch.ops import mas_plan, maximum_path
+    from music_generation_tpu_torch.ops import monotonic_align as mas
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rows = []
+    for shape in shapes:
+        b, t_y, t_x = shape
+        neg_cent, mask, lengths = chip_smoke.long_case(dev, shape,
+                                                       chip_smoke.SEED + 5)
+        plan = mas_plan(t_y, t_x)
+        row = {"shape": list(shape), "lengths": lengths[:4],
+               "variant": plan.variant, "wrapper_ms": chip_smoke.cuda_ms(
+                   lambda: maximum_path(neg_cent, mask), reps=10),
+               "variants": {}}
+        plans = {p.variant: p for p in (mas_plan(t_y, t_x),
+                                        mas.wide_plan(t_y, t_x))}
+        if k_sweep:
+            plans.update({f"wide_k{k}": mas.wide_plan(t_y, t_x, k)
+                          for k in (1, 2, 4, 8, 16, 32)
+                          if 32 * k * mas.MAX_WARPS >= min(t_x, 8192)})
+        paths = {}
+        for name, vplan in plans.items():
+            path = torch.empty_like(neg_cent)
+            args = [neg_cent.data_ptr(), mask.data_ptr(), path.data_ptr(), b,
+                    t_y, t_x]
+            if vplan.variant == "wide":
+                scratch = torch.empty(b * vplan.scratch_bytes // 4,
+                                      dtype=torch.int32, device=dev)
+                fn = mas._Kernel.wide()
+                args += [vplan.k, vplan.warps, scratch.data_ptr()]
+            else:
+                fn = mas._Kernel.get()
+
+            def launches(fn=fn, args=args):
+                for _ in range(10):
+                    if fn(*args, stream):
+                        raise RuntimeError(f"launch failed at {shape}")
+            row["variants"][name] = {
+                "k": vplan.k, "warps": vplan.warps, "strips": vplan.strips,
+                "smem_bytes": vplan.smem_bytes,
+                "scratch_bytes": b * vplan.scratch_bytes,
+                "bare_ms": chip_smoke.cuda_ms(launches, reps=5) / 10}
+            paths[name] = path
+        first = next(iter(paths.values()))
+        row["variants_equal"] = all(torch.equal(first, other)
+                                    for other in paths.values())
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+    return rows
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--shape", type=shape_arg, action="append",
+                   metavar="B,TY,TX", help="time each variant at this shape "
+                   "(repeatable)")
+    p.add_argument("--k-sweep", action="store_true",
+                   help="with --shape: also the wide variant at K = 1..32")
+    args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_mas_timing: no CUDA device", file=sys.stderr)
         return 1
@@ -45,6 +122,9 @@ def main() -> int:
         check=True).stdout.strip(), flush=True)
     build.build_all()
     dev = torch.device("cuda", 0)
+    if args.shape:
+        time_shapes(dev, args.shape, args.k_sweep)
+        return 0
     shape = chip_smoke.MAS_SHAPE
     neg_cent, mask, _ = chip_smoke.mas_case(dev)
     path = torch.empty_like(neg_cent)
