@@ -28,14 +28,18 @@ def receptive_radius_frames(resblock: str = "1",
                             = ((1, 3, 5),) * 3,
                             upsample_rates: Sequence[int] = (8, 8, 2, 2),
                             upsample_kernel_sizes: Sequence[int]
-                            = (16, 16, 4, 4)) -> int:
+                            = (16, 16, 4, 4), head: float = 3.0) -> int:
     """How many input frames on each side of an output sample the
     HiFi-GAN generator reads, rounded up: conv_pre (k 7), each transposed
     conv (at most ceil(k / u) inputs each side), each stage's widest
     resblock (ResBlock1: (k - 1) / 2 * (d + 1) per dilation d; ResBlock2:
-    (k - 1) / 2 * d) and conv_post (k 7), each reach taken at its stage's
-    rate and summed. A chunked decode whose halo is at least this gives
-    the monolithic decode's samples (SVSSynthesizer._chunked_decode)."""
+    (k - 1) / 2 * d) and the head, ``head`` samples of the trunk's output
+    (conv_post, k 7; the iSTFT decoders' heads: istft.head_reach), each
+    reach taken at its stage's rate and summed. The NSF source's strided
+    convs (Generator.exc) reach less than their stage's transposed conv,
+    so they add nothing. A chunked decode whose halo is at least this
+    gives the monolithic decode's samples (SVSSynthesizer._chunked_decode;
+    models.svs.visinger.decoder_radius_frames for any decoder type)."""
     reach, rate = 3.0, 1                            # conv_pre, in frames
     for u, k in zip(upsample_rates, upsample_kernel_sizes):
         reach += math.ceil(k / u) / rate            # the transposed conv
@@ -44,7 +48,7 @@ def receptive_radius_frames(resblock: str = "1",
                          for d in rd)
                      for rk, rd in zip(resblock_kernel_sizes,
                                        resblock_dilation_sizes)) / rate
-    return math.ceil(reach + 3 / rate)              # conv_post
+    return math.ceil(reach + head / rate)           # conv_post or head
 
 
 class ResBlock1(nn.Module):

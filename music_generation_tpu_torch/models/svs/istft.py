@@ -108,6 +108,20 @@ def pqmf_synthesis(bands: torch.Tensor, filters) -> torch.Tensor:
     return torch.nn.functional.conv1d(up, kernel)[:, 0]
 
 
+def head_reach(n_fft: int, hop: int, subbands: int = 1,
+               pqmf_taps: int = 62) -> float:
+    """How many samples of the trunk's output on each side an output
+    sample of an iSTFT head reads: istft_head (k 7), the frames the
+    overlap-add sums besides the
+    sample's own (n_fft / hop - 1) and, with ``subbands`` > 1, the PQMF
+    synthesis filter's half span at the full rate (hop * subbands samples
+    a trunk sample). The ``head`` of hifigan.receptive_radius_frames."""
+    reach = 3 + n_fft // hop - 1
+    if subbands > 1:
+        reach += (pqmf_taps - pqmf_taps // 2) / (hop * subbands)
+    return reach
+
+
 def _mag_phase(h: torch.Tensor, n_bins: int):
     mag = torch.exp(torch.clamp(h[..., :n_bins], -10.0, 6.0))
     phase = np.pi * torch.tanh(h[..., n_bins:])

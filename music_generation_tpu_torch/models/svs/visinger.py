@@ -38,8 +38,8 @@ from ...core.wavenet import WaveNet
 from ...ops import mas_duration_targets
 from ..duration import DurationPredictor
 from .excitation import harmonic_excitation
-from .hifigan import Generator
-from .istft import ISTFTGenerator, MBISTFTGenerator
+from .hifigan import Generator, receptive_radius_frames
+from .istft import ISTFTGenerator, MBISTFTGenerator, head_reach
 
 _F0_BIN = 256
 _F0_MEL_MIN = 1127.0 * math.log(1.0 + 50.0 / 700.0)
@@ -136,6 +136,24 @@ class SVSConfig:
     @property
     def segment_frames(self) -> int:
         return self.segment_size // self.hop_length
+
+
+def decoder_radius_frames(cfg: SVSConfig) -> int:
+    """hifigan.receptive_radius_frames of the vocoder ``cfg`` builds, its
+    trunk and head for any decoder type (NSF adds no reach): 15 frames for
+    SVSConfig()'s HiFi-GAN, 14 for its iSTFT decoder, 25 for MB-iSTFT."""
+    trunk = (cfg.resblock, cfg.resblock_kernel_sizes,
+             cfg.resblock_dilation_sizes)
+    if cfg.decoder_type == "istft":
+        return receptive_radius_frames(
+            *trunk, cfg.istft_upsample_rates, cfg.istft_upsample_kernel_sizes,
+            head_reach(cfg.istft_n_fft, cfg.istft_hop))
+    if cfg.decoder_type == "mb_istft":
+        return receptive_radius_frames(
+            *trunk, cfg.mb_upsample_rates, cfg.mb_upsample_kernel_sizes,
+            head_reach(cfg.istft_n_fft, cfg.istft_hop, cfg.mb_subbands))
+    return receptive_radius_frames(*trunk, cfg.upsample_rates,
+                                   cfg.upsample_kernel_sizes)
 
 
 def _embedding(n: int, dim: int) -> nn.Embedding:

@@ -7,9 +7,15 @@ and, for a melody that gives MIDI tracks (TeleMelody), the rendered
 accompaniment mixed under the vocal; the halo-chunked vocoder decode,
 streaming (stream_score, stream_song) and pipe-format score lines, and
 the batched SVS call over a (data, model) device mesh (``mesh=``).
-Inputs are padded to the same (phone, frame) buckets as the JAX package:
-the vocoder has no mask, so the frame bucket shapes the last samples of
-every sentence and must match for the two packages to agree.
+Inputs are padded to the same (phone, frame) buckets as the JAX package,
+which shape the prior noise and VISinger's flows. The batched call's
+vocoder then decodes each sentence at its own length (decode_groups): the
+vocoder has no mask, but a sample before mel_len * hop reads only frames
+within the decoder's receptive radius of its own, so a width of mel_len
+plus that radius reads the whole bucket's inputs. In float32 the samples
+then differ from the whole bucket's decode by the convolutions' rounding
+at another length (within 1 int16 LSB); under --decoder-bf16 that
+rounding is bfloat16's, as between any two shapes of the bf16 decoder.
 """
 
 from __future__ import annotations
@@ -35,11 +41,17 @@ from ..frontend import ScoreFrontend, load_lexicon, midi_to_note
 from ..models.melody import (MelodyConfig, MelodyGenerator,
                              lyric_dictionary_from_chars, note_dictionary)
 from ..models.svs import SVSConfig, VISinger
+from ..models.svs.visinger import decoder_radius_frames
 
 SENTENCE_SPLIT_RE = re.compile(r"[.。，,？；;?!！\n]")
 PHONE_BUCKETS = (16, 32, 48, 64, 96, 128)
 FRAME_BUCKETS = (128, 256, 512, 768, 1024, 1536, 1984)
 MIN_SENTENCE_LEN = 2
+# the batched decode's widths are multiples of this many frames, which
+# bounds the vocoder's shapes and calls: 128 decoded the score batches of
+# PERF.md's scores_b16 cell 2-6 % faster than 64 on an H100 (fewer calls
+# a batch for the host to launch, for some 6 % more frames)
+DECODE_STEP = 128
 
 
 # the svs_v5 pipeline string-replaces two phrases in every lyric fragment
@@ -71,6 +83,19 @@ def _bucket(value: int, buckets: tuple[int, ...]) -> int:
     if i < len(buckets):
         return buckets[i]
     return -(-value // 64) * 64
+
+
+def decode_groups(mel_len, max_frames: int, halo: int) -> list:
+    """The batched vocoder decode's plan, [(width, row indices)], widest
+    first: each row decodes min(max_frames, mel_len + halo rounded up to
+    DECODE_STEP) frames of the bucket, and rows of one width share a
+    call. A halo that covers the decoder's receptive radius
+    (models.svs.visinger.decoder_radius_frames) leaves every sample
+    before mel_len * hop as the whole bucket's decode gives it."""
+    need = np.asarray(mel_len, np.int64) + halo
+    widths = np.minimum(-(-need // DECODE_STEP) * DECODE_STEP, max_frames)
+    return [(int(w), np.flatnonzero(widths == w))
+            for w in np.unique(widths)[::-1]]
 
 
 def peak_int16(audio: torch.Tensor, mel_len: torch.Tensor,
@@ -156,8 +181,12 @@ class SVSSynthesizer:
     frames, each widened by ``decode_chunk_halo`` frames on both sides and
     centre-cropped (_chunked_decode), which bounds the decoder's
     activations; the halo must cover the decoder's receptive field
-    (models.svs.hifigan.receptive_radius_frames) for the windows to give
-    the monolithic decode's samples.
+    (models.svs.visinger.decoder_radius_frames) for the windows to give
+    the monolithic decode's samples. The batched call crops each
+    sentence's decode to its own length plus ``decode_halo``, that
+    radius of the configured decoder (decode_groups); ``decode_stats``
+    counts its calls, groups, the frames of the padded batches and the
+    frames decoded.
 
     ``mesh``: a parallel.make_mesh grid [n_data][n_model] of devices for
     the batched call (place_on_mesh): the batch is padded to a multiple of
@@ -185,6 +214,10 @@ class SVSSynthesizer:
         self.max_batch = max_batch or self.MAX_BATCH
         self.decode_chunk_frames = decode_chunk_frames
         self.decode_chunk_halo = decode_chunk_halo
+        self.decode_halo = decoder_radius_frames(self.cfg)
+        self.decode_stats = {"calls": 0, "groups": 0, "frames_padded": 0,
+                             "frames_decoded": 0}
+        self._stats_lock = threading.Lock()
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
             self._model = VISinger(self.cfg)
@@ -404,10 +437,12 @@ class SVSSynthesizer:
     @torch.no_grad()
     def dispatch_batch(self, scores: list,
                        noise: Optional[torch.Tensor] = None):
-        """Enqueue one batched SVS call (no host sync): infer (the vocoder
-        chunked when decode_chunk_frames is set), then the per-sentence
-        32767/max(0.01, peak) int16 normalisation on the device. Returns a
-        handle for collect_batch. Each data row of the mesh runs its
+        """Enqueue one batched SVS call: infer_hidden on every data row of
+        the mesh, one host read of every row's mel_len (the call's only
+        wait, for that much of the device's queue), then the vocoder of
+        each row at its own length (_grouped_decode) and the per-sentence
+        32767/max(0.01, peak) int16 normalisation on the device. Returns
+        a handle for collect_batch. Each data row of the mesh runs its
         block of the batch (padded to a multiple of the rows) from the
         prior noise one device would draw."""
         max_frames, packed = self._batch_inputs(scores)
@@ -424,35 +459,67 @@ class SVSSynthesizer:
             packed = torch.cat([packed, extra], dim=1)
             noise = torch.cat([noise,
                                noise.new_zeros((pad, *noise.shape[1:]))])
-        pieces = []
-        for r, row in enumerate(self._rows):
-            with row.gathered() as model:
-                pieces.append(self._infer_decode(
-                    model, packed[:, r * k: (r + 1) * k].to(row.device),
-                    max_frames, noise[r * k: (r + 1) * k].to(row.device)))
-        audio = torch.cat([a.to(self.device) for a, _ in pieces])[:b]
-        mel_len = torch.cat([m.to(self.device) for _, m in pieces])[:b]
-        return audio, mel_len, b
+        with contextlib.ExitStack() as stack:
+            models = [stack.enter_context(row.gathered())
+                      for row in self._rows]
+            inferred = []
+            for r, (row, model) in enumerate(zip(self._rows, models)):
+                p = packed[:, r * k: (r + 1) * k].to(row.device)
+                inferred.append(model.infer_hidden(
+                    p[0], p[3, :, 0], p[1], p[4].view(torch.float32), p[2],
+                    max_frames, noise=noise[r * k: (r + 1) * k].to(
+                        row.device), generator=self.generator))
+            lengths = _host_array(_start_host_copy(torch.cat(
+                [m.to(self.device) for _, m, _ in inferred])))
+            pieces = []
+            for r, (model, (hidden, mel_len, aux)) in enumerate(
+                    zip(models, inferred)):
+                pieces.append(self._grouped_decode(
+                    model, hidden, mel_len, aux.get("exc"),
+                    lengths[r * k: (r + 1) * k]).to(self.device))
+        return torch.cat(pieces)[:b], lengths[:b], b
 
-    def _infer_decode(self, model, packed: torch.Tensor, max_frames: int,
-                      noise: Optional[torch.Tensor]):
-        """(int16 audio [b, S], mel_len [b]) of one packed batch through
-        ``model``: infer_hidden, the vocoder (chunked when
-        decode_chunk_frames is set), the int16 peak normalisation."""
-        hidden, mel_len, aux = model.infer_hidden(
-            packed[0], packed[3, :, 0], packed[1],
-            packed[4].view(torch.float32), packed[2], max_frames,
-            noise=noise, generator=self.generator)
-        if self.decode_chunk_frames:
-            audio = self._chunked_decode(hidden, aux.get("exc"), model)
-        else:
-            audio = model.decode_hidden(hidden, aux.get("exc"))
-        return peak_int16(audio, mel_len, self.cfg.hop_length), mel_len
+    def _grouped_decode(self, model, hidden: torch.Tensor,
+                        mel_len: torch.Tensor, exc: Optional[torch.Tensor],
+                        lengths: np.ndarray) -> torch.Tensor:
+        """int16 audio [k, max_frames * hop] of one block of rows through
+        ``model``'s vocoder (chunked when decode_chunk_frames is set):
+        each group of decode_groups(lengths) decodes the first ``width``
+        frames of its rows, widest first, so that the host enqueues the
+        narrow groups while the device runs the wide ones; the samples
+        past the width stay zero, as peak_int16 leaves them past mel_len
+        * hop."""
+        hop = self.cfg.hop_length
+        k, max_frames, _ = hidden.shape
+        groups = decode_groups(lengths, max_frames, self.decode_halo)
+        order = torch.from_numpy(np.concatenate([g for _, g in groups]))
+        if hidden.device.type == "cuda":
+            order = order.pin_memory()
+        order = order.to(hidden.device, non_blocking=True)
+        out = torch.zeros((k, max_frames * hop), dtype=torch.int16,
+                          device=hidden.device)
+        start = 0
+        for width, group in groups:
+            rows = order[start: start + len(group)]
+            start += len(group)
+            h = hidden[:, :width].index_select(0, rows)
+            e = (None if exc is None
+                 else exc[:, :width * hop].index_select(0, rows))
+            y = (self._chunked_decode(h, e, model)
+                 if self.decode_chunk_frames else model.decode_hidden(h, e))
+            out[rows, :width * hop] = peak_int16(
+                y, mel_len.index_select(0, rows), hop)
+        with self._stats_lock:
+            self.decode_stats["calls"] += 1
+            self.decode_stats["groups"] += len(groups)
+            self.decode_stats["frames_padded"] += k * max_frames
+            self.decode_stats["frames_decoded"] += sum(
+                w * len(g) for w, g in groups)
+        return out
 
     def collect_batch(self, handle) -> list[np.ndarray]:
         audio, mel_len, b = handle
         audio = audio.cpu().numpy()
-        mel_len = mel_len.cpu().numpy()
         return [audio[i, : int(mel_len[i]) * self.cfg.hop_length]
                 for i in range(b)]
 

@@ -22,7 +22,8 @@ the reference controllers:
   POST /profile?seconds=N&dir=NAME -> a torch.profiler trace of live
     traffic (every thread) under <log_dir>/profile/NAME/
   GET /syn_outputs/<path> -> a file under ./syn_outputs
-  GET /healthz -> {ok: true[, batching: {...}][, fused: true]}
+  GET /healthz -> {ok: true[, batching: {...}][, decode: {...}]
+                  [, fused: true]}
 
 Run: python -m music_generation_tpu_torch.serve.app --port 5005
      [--variant svs_v6_multispeaker|svs_v5|svs_v5_multispeaker|melody_v2|
@@ -292,6 +293,11 @@ def make_http_server(service: MusicGenerationService, host: str, port: int,
                 payload = {"ok": True}
                 if service._batcher is not None:
                     payload["batching"] = dict(service._batcher.stats)
+                synths = getattr(service.songs, "synthesizers", None)
+                if synths:  # the batched decode's crop, every singer's
+                    stats = [s.decode_stats for s in synths.values()]
+                    payload["decode"] = {k: sum(d[k] for d in stats)
+                                         for k in stats[0]}
                 if service.fused is not None:
                     payload["fused"] = True
                 self._send_json(payload)
